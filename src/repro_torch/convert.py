@@ -1,0 +1,52 @@
+"""Carry the JAX package's state into the port, so both packages compute the
+same thing from the same inputs (the parity tests' bridge).
+
+Everything crosses as numpy or plain attributes: this module imports
+nothing of JAX or of the JAX package, and takes their objects by duck type.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.objective import LogisticRegression
+
+
+def _leaf(tree, path: str):
+    node = tree
+    for key in path.split("/"):
+        node = node[key]
+    return node
+
+
+def to_params(w, device, param_shapes=()) -> torch.Tensor:
+    """Flat float32 params on ``device`` from a flat vector (numpy or any
+    array) or a nested dict of leaves laid out by ``param_shapes``
+    (``((path, shape, dtype), ...)``, "/"-joined paths)."""
+    if isinstance(w, dict):
+        w = np.concatenate([np.asarray(_leaf(w, path)).reshape(-1)
+                            for path, _, _ in param_shapes])
+    return torch.as_tensor(np.asarray(w, np.float32), device=device)
+
+
+def to_objective(source, device, l2_reg=None) -> LogisticRegression:
+    """A port `LogisticRegression` from a dataset (anything with ``X``,
+    ``y`` and ``l2_reg``, such as either package's `LogRegDataset`), a JAX
+    `LogisticRegression` (``X``, ``y``, ``l2``), or an ``(X, y, l2)``
+    tuple. ``l2_reg`` overrides the source's λ."""
+    if isinstance(source, tuple):
+        X, y, l2 = source
+    else:
+        X, y = source.X, source.y
+        l2 = getattr(source, "l2_reg", None)
+        if l2 is None:
+            l2 = source.l2
+    l2 = l2 if l2_reg is None else l2_reg
+    return LogisticRegression(np.array(X, np.float32), np.array(y, np.float32),
+                              float(l2), device=device)
+
+
+def to_key(key, device=None) -> torch.Tensor:
+    """A port key ([..., 2] int64) from a raw JAX key (uint32 [..., 2])."""
+    return torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64),
+                           device=device)

@@ -1,0 +1,45 @@
+from repro_torch.core.objective import (
+    LogisticRegression,
+    Objective,
+    get_objective,
+    register_objective,
+    registered_objectives,
+)
+from repro_torch.core.svrg import svrg_epoch, run_svrg, sweep_spec as svrg_sweep_spec
+from repro_torch.core.asysvrg import (
+    AsyRunResult,
+    asysvrg_epoch,
+    run_asysvrg,
+)
+from repro_torch.core.sweep import (
+    ALGOS,
+    SweepSpec,
+    SweepResult,
+    SweepPlan,
+    make_grid,
+    plan_sweep,
+    run_sweep,
+)
+from repro_torch.core.hogwild import run_hogwild
+
+__all__ = [
+    "LogisticRegression",
+    "Objective",
+    "register_objective",
+    "get_objective",
+    "registered_objectives",
+    "svrg_epoch",
+    "run_svrg",
+    "svrg_sweep_spec",
+    "ALGOS",
+    "AsyRunResult",
+    "asysvrg_epoch",
+    "run_asysvrg",
+    "SweepSpec",
+    "SweepResult",
+    "SweepPlan",
+    "make_grid",
+    "plan_sweep",
+    "run_sweep",
+    "run_hogwild",
+]

@@ -1,0 +1,473 @@
+"""Multi-algorithm sweep engine: the experiment grid as batched rows.
+
+The port of `repro.core.sweep`. The paper's tables and figures compare
+AsySVRG vs Hogwild! vs serial SVRG over (reading scheme × thread count ×
+step size × seed × τ). Every configuration becomes a row of a group; a
+group runs as ONE batched engine over a ``[C, d]`` iterate block with the
+row's τ, scheme, delay kind, step size and epoch budget as data
+(`asysvrg._asysvrg_epochs_core` / `hogwild._hogwild_epochs_core`), so each
+inner update is one ``svrg_update`` launch for all C rows and each snapshot
+one ``logreg_grad`` launch.
+
+**Masked per-row epochs.** ``SweepSpec.epochs`` (0 = inherit `run_sweep`'s
+``epochs`` argument) lets rows of one call run different budgets: the group
+runs to its members' max and finished rows freeze, so a row with
+``epochs=E`` equals an independent E-epoch run.
+
+The ``algo`` axis selects the epoch engine per row:
+
+  * ``"asysvrg"`` — Algorithm 1 (SVRG control variate under bounded-delay
+    reads);
+  * ``"hogwild"`` — the baseline, same read semantics, no control variate,
+    γ ← decay·γ per epoch;
+  * ``"svrg"`` — serial SVRG as the zero-delay degenerate case of the
+    asysvrg engine (τ=0, zero delays, consistent reads). svrg specs are
+    NORMALIZED on entry: ``tau != 0`` raises, and ``scheme``/``delay_kind``
+    are rewritten to what executes.
+
+Grouping: specs are grouped by (objective fingerprint, engine, M̃, option,
+buf_len, fused), all pinned per row, so a row's group never depends on the
+other rows of the sweep — the same group key as the JAX package. Rows never
+mix inside the engine, so a row's results do not depend on the rows it is
+batched with (bit for bit on the CPU).
+
+Not in this slice, each raising `NotImplementedError`: ``engine_mode=
+"fused"`` (the K3 sweep-epoch megakernel, next slice), ``telemetry=True``
+(the obs slice) and a ``mesh`` (multi-GPU row sharding). None of them falls
+back to the batched path.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.config import SVRGConfig
+from repro_torch.core.asysvrg import (
+    DELAY_IDS,
+    SCHEME_IDS,
+    _asysvrg_epochs_core,
+    _resolve_steps,
+)
+from repro_torch.core.hogwild import _hogwild_epochs_core, _resolve_hogwild_steps
+from repro_torch.core.objective import Objective, get_objective
+
+ALGOS = ("asysvrg", "hogwild", "svrg")
+# svrg rows run on the asysvrg engine (τ=0 degenerate case), so two engines
+_ENGINE_ASYSVRG = "asysvrg"
+_ENGINE_HOGWILD = "hogwild"
+ENGINE_MODES = ("vmap", "fused")
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepSpec:
+    """One grid cell: the knobs Tables 2–3 / Fig. 1 vary.
+
+    ``algo`` picks the epoch engine ("asysvrg" / "hogwild" / "svrg").
+    τ conventions follow each algorithm's sequential driver:
+      * asysvrg: ``tau=0`` means "derive τ = p−1" (SVRGConfig convention);
+        ``num_threads``/``inner_steps`` fix M̃ = pM exactly as SVRGConfig.
+      * hogwild: ``tau=-1`` derives τ = p−1 and ``tau=0`` is genuinely zero
+        delay (`run_hogwild` convention); M̃ = (n // p)·p.
+      * svrg: τ MUST be 0 (anything else raises) and reads execute
+        consistent with zero delays; M̃ = ``inner_steps`` or 2n.
+    ``decay`` is the per-epoch γ ← decay·γ factor (hogwild only).
+    ``epochs`` is this row's outer-epoch budget; 0 inherits `run_sweep`'s
+    ``epochs`` argument.
+    ``objective`` optionally names a REGISTERED objective; "" means the
+    objective the call passes in. All rows of one plan resolve to ONE
+    objective.
+    ``engine_mode``: "vmap" (the batched-rows engine) or "" for it;
+    "fused" raises until the sweep-epoch megakernel is ported.
+    ``telemetry`` must stay False until the obs layer is ported.
+    """
+    seed: int = 0
+    scheme: str = "inconsistent"
+    step_size: float = 0.1
+    tau: int = 0
+    delay_kind: str = "fixed"
+    num_threads: int = 8
+    inner_steps: int = 0
+    option: int = 2
+    algo: str = "asysvrg"
+    decay: float = 0.9
+    epochs: int = 0
+    objective: str = ""
+    engine_mode: str = ""
+    telemetry: bool = False
+
+    def to_config(self) -> SVRGConfig:
+        return SVRGConfig(scheme=self.scheme, step_size=self.step_size,
+                          num_threads=self.num_threads, tau=self.tau,
+                          inner_steps=self.inner_steps, option=self.option)
+
+
+class SweepResult(NamedTuple):
+    """Row-aligned sweep outputs (numpy).
+
+    ``specs`` are the NORMALIZED specs describing what executed.
+    ``histories``/``effective_passes`` have the GLOBAL max-epochs width;
+    rows with a shorter budget are frozen past their own epoch count — use
+    :meth:`curve` for a row trimmed to its own budget.
+    """
+    specs: Tuple[SweepSpec, ...]
+    histories: np.ndarray         # [C, max_epochs+1] loss after each epoch
+    effective_passes: np.ndarray  # [C, max_epochs+1] cumulative eff. passes
+    final_w: np.ndarray           # [C, flat_dim] FLAT final iterates
+    total_updates: np.ndarray     # [C] updates applied over all row epochs
+    epochs_per_row: np.ndarray    # [C] each row's executed epoch budget
+    param_shapes: Tuple = ()      # objective's ((path, shape, dtype), ...)
+
+    def curve(self, c: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(effective_passes, loss history) trimmed to row c's own budget."""
+        e = int(self.epochs_per_row[c])
+        return self.effective_passes[c, :e + 1], self.histories[c, :e + 1]
+
+    def row(self, c: int) -> Dict:
+        """One config as a flat record (for CSV-ish reporting)."""
+        s = self.specs[c]
+        passes, hist = self.curve(c)
+        return {**dataclasses.asdict(s),
+                "history": hist,
+                "effective_passes": passes,
+                "total_updates": int(self.total_updates[c])}
+
+
+def make_grid(schemes: Sequence[str] = ("consistent", "inconsistent", "unlock"),
+              seeds: Sequence[int] = (0,),
+              step_sizes: Sequence[float] = (0.1,),
+              taus: Sequence[int] = (0,),
+              delay_kinds: Sequence[str] = ("fixed",),
+              num_threads: int = 8,
+              inner_steps: int = 0,
+              option: int = 2,
+              algo: str = "asysvrg",
+              decay: float = 0.9,
+              epochs: int = 0,
+              objective: str = "") -> List[SweepSpec]:
+    """Cartesian grid over the paper's experiment axes, outermost-first.
+
+    The ``taus`` axis uses ONE convention for every algo: 0 means "derive
+    τ = p−1". For hogwild rows that becomes the driver's ``-1`` sentinel.
+    """
+    if algo == "hogwild":
+        taus = [-1 if t == 0 else t for t in taus]
+    return [
+        SweepSpec(seed=seed, scheme=scheme, step_size=step, tau=tau,
+                  delay_kind=kind, num_threads=num_threads,
+                  inner_steps=inner_steps, option=option, algo=algo,
+                  decay=decay, epochs=epochs, objective=objective)
+        for scheme in schemes
+        for seed in seeds
+        for step in step_sizes
+        for tau in taus
+        for kind in delay_kinds
+    ]
+
+
+class _Resolved(NamedTuple):
+    engine: str          # "asysvrg" | "hogwild" (svrg routes to asysvrg)
+    total: int           # M̃, the inner-loop length
+    tau: int
+    scheme_id: int
+    delay_id: int
+    option: int          # 0 for hogwild (engine has no option switch)
+    passes_per_epoch: float  # repro-lint: ignore[RL004] derived from engine+total+n (all keyed); pass-count accounting only
+    buf_len: int         # ring-buffer length, pinned per-row (see _resolve)
+    epochs: int          # this row's outer-epoch budget
+    fused: bool = False  # the megakernel path; always False in this slice
+
+
+def _row_buf_len(tau: int, num_threads: int, total: int) -> int:
+    """Ring-buffer length from the ROW's own fields (never the group's):
+    ≥ τ+1 and padded up to the thread count, so a grid varying τ at one
+    thread count shares one group. Slot arithmetic uses the row's τ, so
+    the padding only moves shapes, never values."""
+    return min(max(tau + 1, max(1, num_threads)), max(1, total))
+
+
+def _normalize_spec(spec: SweepSpec) -> SweepSpec:
+    """Entry normalization: reject contradictions and options this slice
+    does not run, rewrite svrg to what runs."""
+    if spec.algo not in ALGOS:
+        raise ValueError(f"unknown algo {spec.algo!r}")
+    if spec.scheme not in SCHEME_IDS:
+        raise ValueError(f"unknown scheme {spec.scheme!r}")
+    if spec.delay_kind not in DELAY_IDS:
+        raise ValueError(f"unknown delay schedule {spec.delay_kind!r}")
+    if spec.epochs < 0:
+        raise ValueError(f"epochs must be >= 0 (0 = inherit), got {spec.epochs}")
+    if spec.engine_mode and spec.engine_mode not in ENGINE_MODES:
+        raise ValueError(
+            f"unknown engine_mode {spec.engine_mode!r} "
+            f"(expected one of {ENGINE_MODES}, or '' to inherit)")
+    if spec.engine_mode == "fused":
+        raise NotImplementedError(
+            "engine_mode='fused' needs the sweep_epoch megakernel (K3), "
+            "which the next slice of the port brings; use 'vmap'")
+    if spec.telemetry:
+        raise NotImplementedError(
+            "telemetry=True needs repro.obs.telemetry, which the obs slice "
+            "of the port brings")
+    if spec.algo == "svrg":
+        if spec.tau != 0:
+            raise ValueError(
+                f"algo='svrg' is the τ=0 degenerate case; tau={spec.tau} "
+                "contradicts it — use algo='asysvrg' for τ>0")
+        return dataclasses.replace(spec, scheme="consistent",
+                                   delay_kind="zero")
+    return spec
+
+
+def _resolve(obj: Objective, spec: SweepSpec,
+             default_epochs: int) -> _Resolved:
+    """Per-spec resolution, delegating to each algorithm's own arithmetic.
+    Raises for non-positive resolved totals."""
+    epochs = spec.epochs or default_epochs
+    if epochs < 1:
+        raise ValueError(f"resolved epochs must be >= 1, got {epochs}")
+
+    if spec.algo == "hogwild":
+        _, total, tau = _resolve_hogwild_steps(obj.n, spec.num_threads,
+                                               spec.tau)
+        delay_id = DELAY_IDS["zero"] if tau == 0 else DELAY_IDS[spec.delay_kind]
+        res = _Resolved(_ENGINE_HOGWILD, total, tau,
+                        SCHEME_IDS[spec.scheme], delay_id, 0, 1.0,
+                        _row_buf_len(tau, spec.num_threads, total), epochs)
+    elif spec.algo == "svrg":
+        # the zero-delay degenerate case on the asysvrg engine (paper §3)
+        total = spec.inner_steps or 2 * obj.n
+        res = _Resolved(_ENGINE_ASYSVRG, total, 0,
+                        SCHEME_IDS["consistent"], DELAY_IDS["zero"],
+                        spec.option, 1.0 + total / obj.n,
+                        _row_buf_len(0, spec.num_threads, total), epochs)
+    else:
+        _, _, total, tau = _resolve_steps(obj, spec.to_config())
+        delay_id = DELAY_IDS["zero"] if tau == 0 else DELAY_IDS[spec.delay_kind]
+        res = _Resolved(_ENGINE_ASYSVRG, total, tau, SCHEME_IDS[spec.scheme],
+                        delay_id, spec.option, 1.0 + total / obj.n,
+                        _row_buf_len(tau, spec.num_threads, total), epochs)
+    if res.total < 1:
+        raise ValueError(
+            f"resolved inner-step count M̃ must be >= 1, got {res.total} "
+            f"(inner_steps={spec.inner_steps}) for {spec}")
+    return res
+
+
+def _executed_spec(spec: SweepSpec, r: _Resolved) -> SweepSpec:
+    """Rewrite convention sentinels to resolved values: the spec a
+    `SweepResult` carries describes exactly what executed."""
+    delay = "zero" if r.delay_id == DELAY_IDS["zero"] else spec.delay_kind
+    return dataclasses.replace(spec, tau=r.tau, delay_kind=delay,
+                               epochs=r.epochs,
+                               engine_mode="fused" if r.fused else "vmap")
+
+
+# (objective fingerprint, engine, M̃, option, buf_len, fused)
+_GroupKey = Tuple[int, str, int, int, int, bool]
+
+
+class SweepPlan(NamedTuple):
+    """Static execution plan: which rows run together, with which bounds."""
+    specs: Tuple[SweepSpec, ...]          # normalized, executed-semantics
+    resolved: Tuple[_Resolved, ...]
+    groups: Dict[_GroupKey, List[int]]    # group key -> member row indices
+    objective: Objective                  # the ONE objective every row runs
+
+    def group_epochs(self, key: _GroupKey) -> int:
+        """A group's epoch bound: max member epoch budget."""
+        return max(self.resolved[c].epochs for c in self.groups[key])
+
+
+def _resolve_objective(obj: Optional[Objective],
+                       specs: Sequence[SweepSpec]) -> Objective:
+    """The plan's single objective: named specs resolve via the registry,
+    "" means the caller's ``obj``; mixing objectives in one plan raises."""
+    names = {s.objective for s in specs}
+    resolved: Dict[str, Objective] = {}
+    for name in sorted(names - {""}):
+        resolved[name] = get_objective(name)
+    if "" in names:
+        if obj is None:
+            raise ValueError(
+                "specs with objective='' need an explicit objective argument")
+        resolved[""] = obj
+    fps = {o.fingerprint() for o in resolved.values()}
+    if len(fps) > 1:
+        raise ValueError(
+            f"one sweep, one objective: specs name {sorted(names)} which "
+            "resolve to different objectives — submit separate sweeps")
+    return next(iter(resolved.values()))
+
+
+def plan_sweep(obj: Optional[Objective], epochs: int,
+               specs: Sequence[SweepSpec]) -> SweepPlan:
+    """Normalize + resolve specs and group them by engine shape. ``obj``
+    may be None when every spec names a registered objective."""
+    specs = tuple(_normalize_spec(s) for s in specs)
+    if not specs:
+        raise ValueError("empty sweep")
+    obj = _resolve_objective(obj, specs)
+    ofp = obj.fingerprint()
+    resolved = tuple(_resolve(obj, s, epochs) for s in specs)
+    specs = tuple(_executed_spec(s, r) for s, r in zip(specs, resolved))
+    groups: Dict[_GroupKey, List[int]] = {}
+    for c, r in enumerate(resolved):
+        groups.setdefault(
+            (ofp, r.engine, r.total, r.option, r.buf_len, r.fused),
+            []).append(c)
+    return SweepPlan(specs=specs, resolved=resolved, groups=groups,
+                     objective=obj)
+
+
+def _asysvrg_group_fn(obj: Objective, num_data: int, epochs: int, total: int,
+                      buf_len: int, option: int, drop_prob: float):
+    """The batched asysvrg/svrg engine for one group: called with the data
+    tuple and the row arguments, returns (w_fin [C, d], hist [C, E+1])."""
+
+    def group(*all_args):
+        data = all_args[:num_data]
+        keys, etas, taus, scheme_ids, delay_ids, row_epochs, w0_rows = \
+            all_args[num_data:]
+        return _asysvrg_epochs_core(
+            obj, data, w0_rows, keys, etas, taus, scheme_ids, delay_ids,
+            epochs=epochs, total=total, buf_len=buf_len, option=option,
+            drop_prob=drop_prob, row_epochs=row_epochs)
+
+    return group
+
+
+def _hogwild_group_fn(obj: Objective, num_data: int, epochs: int, total: int,
+                      buf_len: int, drop_prob: float):
+    """The batched Hogwild! engine for one group (see `_asysvrg_group_fn`)."""
+
+    def group(*all_args):
+        data = all_args[:num_data]
+        (keys, gammas, decays, taus, scheme_ids, delay_ids, row_epochs,
+         w0_rows) = all_args[num_data:]
+        return _hogwild_epochs_core(
+            obj, data, w0_rows, keys, gammas, decays, taus, scheme_ids,
+            delay_ids, epochs=epochs, total=total, buf_len=buf_len,
+            drop_prob=drop_prob, row_epochs=row_epochs)
+
+    return group
+
+
+def _group_fn(engine: str, *, obj: Objective, num_data: int, epochs: int,
+              total: int, buf_len: int, option: int, drop_prob: float):
+    """The group body for an engine (built directly; the runner cache
+    arrives with the service slice)."""
+    if engine == _ENGINE_HOGWILD:
+        return _hogwild_group_fn(obj, num_data, epochs, total, buf_len,
+                                 drop_prob)
+    return _asysvrg_group_fn(obj, num_data, epochs, total, buf_len, option,
+                             drop_prob)
+
+
+def _accumulate_passes(ppe: Sequence[float], epochs_per_row: np.ndarray,
+                       max_epochs: int) -> np.ndarray:
+    """[C, max_epochs+1] cumulative effective passes (float64 running sum in
+    the sequential drivers' order; frozen rows add 0.0)."""
+    ppe_col = np.asarray(ppe, np.float64)[:, None]
+    live = np.arange(max_epochs)[None, :] < np.asarray(epochs_per_row)[:, None]
+    out = np.zeros((len(epochs_per_row), max_epochs + 1), np.float64)
+    out[:, 1:] = np.cumsum(np.where(live, ppe_col, 0.0), axis=1)
+    return out
+
+
+def _write_row_history(dst_row: np.ndarray, hist_row: np.ndarray,
+                       group_epochs: int) -> None:
+    """Demux ONE row's group-width history into a destination row of any
+    width: beyond a row's own budget every entry is the frozen last live
+    loss, so trimming and re-emitting the tail are both exact."""
+    width = dst_row.shape[0]
+    if width <= group_epochs + 1:
+        dst_row[:] = hist_row[:width]
+    else:
+        dst_row[:group_epochs + 1] = hist_row
+        dst_row[group_epochs + 1:] = hist_row[-1]
+
+
+def _dispatch_group(obj: Objective, specs: Sequence[SweepSpec],
+                    resolved: Sequence[_Resolved], members: Sequence[int],
+                    key_: _GroupKey, group_epochs: int, w_init,
+                    drop_prob: float):
+    """Run ONE group on the objective's device; returns (histories [rows,
+    group_epochs+1], final_w [rows, flat_dim]) as numpy."""
+    _, engine, total, option, buf_len, _ = key_
+    device = w_init.device
+    f32 = dict(dtype=torch.float32, device=device)
+    keys = prng.keys_from_seeds([specs[c].seed for c in members], device)
+    etas = torch.tensor([specs[c].step_size for c in members], **f32)
+    taus = [resolved[c].tau for c in members]
+    scheme_ids = [resolved[c].scheme_id for c in members]
+    delay_ids = [resolved[c].delay_id for c in members]
+    row_epochs = [resolved[c].epochs for c in members]
+    w0_rows = w_init[None, :].repeat(len(members), 1)
+
+    if engine == _ENGINE_HOGWILD:
+        decays = torch.tensor([specs[c].decay for c in members], **f32)
+        args = (keys, etas, decays, taus, scheme_ids, delay_ids, row_epochs,
+                w0_rows)
+    else:
+        args = (keys, etas, taus, scheme_ids, delay_ids, row_epochs, w0_rows)
+
+    data = obj.data_args()
+    runner = _group_fn(engine, obj=obj, num_data=len(data),
+                       epochs=group_epochs, total=total, buf_len=buf_len,
+                       option=option, drop_prob=drop_prob)
+    w_fin, hist = runner(*data, *args)
+    return hist.cpu().numpy(), w_fin.cpu().numpy()
+
+
+def _assemble_result(specs: Tuple[SweepSpec, ...],
+                     resolved: Sequence[_Resolved], histories: np.ndarray,
+                     final_w: np.ndarray,
+                     param_shapes: Tuple = ()) -> SweepResult:
+    """Derive the accounting rows (passes, totals, epoch budgets) from the
+    resolved specs and build the `SweepResult`."""
+    epochs_per_row = np.asarray([r.epochs for r in resolved], np.int64)
+    passes = _accumulate_passes([r.passes_per_epoch for r in resolved],
+                                epochs_per_row, histories.shape[1] - 1)
+    total_updates = epochs_per_row * np.asarray(
+        [r.total for r in resolved], np.int64)
+    return SweepResult(specs=specs, histories=histories,
+                       effective_passes=passes, final_w=final_w,
+                       total_updates=total_updates,
+                       epochs_per_row=epochs_per_row,
+                       param_shapes=param_shapes)
+
+
+def run_sweep(obj: Optional[Objective], epochs: int,
+              specs: Sequence[SweepSpec], *, w0=None,
+              drop_prob: float = 0.02, mesh=None) -> SweepResult:
+    """Run every spec for its epoch budget, one batched engine run per
+    (objective, engine, M̃, option, buf_len) group, on the objective's
+    device. ``mesh`` must be None: multi-GPU row sharding is a later
+    slice."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_sweep(mesh=...) needs multi-GPU row sharding, which a later "
+            "slice of the port brings; call it with mesh=None")
+    plan = plan_sweep(obj, epochs, specs)
+    specs, resolved, obj = plan.specs, plan.resolved, plan.objective
+    w_init = obj.init_flat() if w0 is None else obj.as_flat(w0)
+
+    C = len(specs)
+    max_epochs = max(r.epochs for r in resolved)
+    histories = np.zeros((C, max_epochs + 1), np.float32)
+    final_w = np.zeros((C, obj.flat_dim), np.float32)
+
+    for key_, members in plan.groups.items():
+        group_epochs = plan.group_epochs(key_)
+        hist, w_fin = _dispatch_group(obj, specs, resolved, members, key_,
+                                      group_epochs, w_init, drop_prob)
+        for row, c in enumerate(members):
+            _write_row_history(histories[c], hist[row], group_epochs)
+            final_w[c] = w_fin[row]
+
+    return _assemble_result(specs, resolved, histories, final_w,
+                            param_shapes=obj.param_shapes())

@@ -1,0 +1,9 @@
+from repro_torch.data.libsvm import (
+    PAPER_DATASETS,
+    LogRegDataset,
+    make_synthetic_libsvm,
+    parse_libsvm_file,
+)
+
+__all__ = ["PAPER_DATASETS", "LogRegDataset", "make_synthetic_libsvm",
+           "parse_libsvm_file"]

@@ -1,0 +1,22 @@
+"""Plain torch version of the fused SVRG control-variate update:
+
+    u' = u − lr · (g − g0 + gf + wd·u)
+
+Math in float32, the result cast back to ``u.dtype`` — the same arithmetic,
+in the same order, as ``csrc/svrg_update.cu``. ``u`` is ``[C, d]`` with a
+per-row ``lr[C]`` (or ``[d]`` with a scalar ``lr``).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def svrg_update_ref(u, g, g0, gf, lr, wd: float = 0.0):
+    f32 = torch.float32
+    lr = torch.as_tensor(lr, dtype=f32, device=u.device)
+    if lr.dim() == 1 and u.dim() == 2:
+        lr = lr[:, None]
+    v = (g.to(f32) - g0.to(f32)) + gf.to(f32)
+    if wd:
+        v = v + wd * u.to(f32)
+    return (u.to(f32) - lr * v).to(u.dtype)

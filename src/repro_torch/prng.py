@@ -1,0 +1,124 @@
+"""Counter-based randomness: the pieces of `jax.random` the engines draw from,
+bit for bit, as integer tensor ops.
+
+The JAX package draws every sample index, delay, reader mask and drop mask
+from `jax.random` with the threefry2x32 generator in its partitionable mode
+(`jax_threefry_partitionable=True`, the default since JAX 0.5). This module
+reproduces that generator, so `run_asysvrg(seed=s)` here and in the JAX
+package visit the same samples in the same order, and a seed keeps one
+meaning across both packages.
+
+A key is an int64 tensor of shape ``[..., 2]`` holding two uint32 words;
+leading dimensions batch independent keys (one per sweep row, one per step).
+Arithmetic runs in int64 with 32-bit masks because torch's uint32 support is
+incomplete. Every function works on any device; nothing here syncs with the
+host.
+
+Sources (JAX 0.9.0): ``jax/_src/prng.py`` (`threefry_seed`,
+`_threefry2x32_lowering`, `_threefry_split_foldlike`,
+`_threefry_random_bits_partitionable`) and ``jax/_src/random.py``
+(`_uniform`, `_randint`, `_bernoulli`).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+MASK32 = 0xFFFFFFFF
+_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: ``[0, seed mod 2^32]``."""
+    seed = int(seed)
+    if not -2**31 <= seed < 2**31:
+        raise ValueError(f"seed {seed} does not fit in 32 bits")
+    return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
+
+
+def keys_from_seeds(seeds: Sequence[int], device=None) -> torch.Tensor:
+    """``vmap(jax.random.PRNGKey)(seeds)``: one key per seed, ``[len, 2]``."""
+    return torch.stack([PRNGKey(s, device) for s in seeds])
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The threefry2x32 hash (20 rounds) of counter words ``(x1, x2)`` under
+    key words ``(k1, k2)``; all int64 holding uint32, broadcast together."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & MASK32
+    x2 = (x2 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return x1, x2
+
+
+def _hash_iota(key: torch.Tensor, shape: Tuple[int, ...]):
+    """threefry of the 64-bit iota over ``shape`` (high word 0, as every
+    shape here holds fewer than 2^32 elements), for each key in the batch:
+    returns two ``[*key.shape[:-1], *shape]`` word tensors."""
+    count = int(np.prod(shape)) if shape else 1
+    if count >= 2**32:
+        raise ValueError(f"shape {shape} holds more than 2^32 elements")
+    lo = torch.arange(count, dtype=torch.int64, device=key.device)
+    lo = lo.reshape(shape)
+    lead = key.shape[:-1]
+    expand = (...,) + (None,) * len(shape)
+    k1, k2 = key[..., 0][expand], key[..., 1][expand]
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    out_shape = tuple(lead) + tuple(shape)
+    return b1.expand(out_shape), b2.expand(out_shape)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` (fold-like form): ``[..., num, 2]``."""
+    b1, b2 = _hash_iota(key, (num,))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """32 random bits per element, partitionable form ``bits1 ^ bits2``."""
+    b1, b2 = _hash_iota(key, tuple(shape))
+    return b1 ^ b2
+
+
+def uniform(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the top 23
+    bits become the mantissa of a float in [1, 2), minus 1."""
+    bits = random_bits(key, shape)
+    mant = (bits >> 9) | 0x3F800000
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` with ``p``
+    rounded to float32, as JAX rounds a Python float."""
+    return uniform(key, shape) < float(np.float32(p))
+
+
+def randint(key: torch.Tensor, shape: Tuple[int, ...], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32 semantics,
+    returned as int64): two 32-bit draws folded modulo the span through the
+    multiplier ``2^32 mod span``."""
+    if not -2**31 <= minval < 2**31 or not -2**31 <= maxval < 2**31:
+        raise ValueError("randint bounds must fit in int32")
+    k = split(key, 2)
+    higher = random_bits(k[..., 0, :], shape)
+    lower = random_bits(k[..., 1, :], shape)
+    span = max(1, maxval - minval) & MASK32
+    multiplier = (2**16 % span)
+    multiplier = ((multiplier * multiplier) & MASK32) % span
+    offset = ((higher % span) * multiplier) & MASK32
+    offset = ((offset + lower % span) & MASK32) % span
+    return offset + minval

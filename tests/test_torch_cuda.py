@@ -1,0 +1,83 @@
+"""The port's CUDA kernels and engine on the card, each against its plain
+torch version. Runs on a machine with a CUDA device and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py imports JAX, which the port does not
+need.) Elsewhere every test skips: a CUDA kernel has no CPU mode.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.config import SVRGConfig
+from repro_torch.core.asysvrg import run_asysvrg
+from repro_torch.core.objective import LogisticRegression
+from repro_torch.kernels.logreg_grad.ops import logreg_grad
+from repro_torch.kernels.logreg_grad.ref import logreg_grad_ref
+from repro_torch.kernels.svrg_update.ops import svrg_update
+from repro_torch.kernels.svrg_update.ref import svrg_update_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's CUDA kernels have no "
+                    "CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("shape", [(1, 2048), (3, 1000), (2, 33), (77,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_svrg_update_kernel_equals_plain(gen, shape, dtype):
+    """Same float32 arithmetic in the same order, no FMA: equal bits."""
+    u, g, g0, gf = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                    for _ in range(4))
+    lr = torch.rand(shape[0] if len(shape) == 2 else 1, generator=gen,
+                    device="cuda")
+    before = svrg_update.launches
+    out = svrg_update(u, g, g0, gf, lr, wd=0.01)
+    assert svrg_update.launches == before + 1
+    assert torch.equal(out, svrg_update_ref(u, g, g0, gf, lr, 0.01))
+
+
+@pytest.mark.parametrize("n,p", [(96, 64), (1000, 333), (20242, 2048)])
+def test_logreg_grad_kernel_matches_plain(gen, n, p):
+    """rtol 1e-5, atol 1e-6 (summation order); rows independent bitwise."""
+    X = torch.randn((n, p), generator=gen, device="cuda") / p ** 0.5
+    y = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    W = 0.3 * torch.randn((5, p), generator=gen, device="cuda")
+    G = logreg_grad(X, y, W, 1e-4)
+    torch.testing.assert_close(G, logreg_grad_ref(X, y, W, 1e-4),
+                               rtol=1e-5, atol=1e-6)
+    for c in range(5):
+        assert torch.equal(G[c], logreg_grad(X, y, W[c:c + 1], 1e-4)[0])
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x = torch.randn((4, 8), generator=gen, device="cuda")
+    with pytest.raises(ValueError):
+        svrg_update(x.T, x.T, x.T, x.T, 0.1)
+    with pytest.raises(TypeError):
+        svrg_update(*(x.double(),) * 4, 0.1)
+    with pytest.raises(ValueError):
+        logreg_grad(x, torch.ones(3, device="cuda"), x[:1], 0.0)
+    with pytest.raises(TypeError):
+        logreg_grad(x.double(), torch.ones(4, device="cuda"), x[:1], 0.0)
+
+
+def test_engine_on_the_card_matches_cpu(gen):
+    rng = np.random.default_rng(0)
+    X = (rng.standard_normal((96, 64)) / 8).astype(np.float32)
+    y = np.where(rng.random(96) < 0.5, -1.0, 1.0).astype(np.float32)
+    cfg = SVRGConfig(scheme="unlock", step_size=0.5, num_threads=4,
+                     inner_steps=32)
+    card = run_asysvrg(LogisticRegression(X, y, 1e-3), 2, cfg, seed=1)
+    cpu = run_asysvrg(LogisticRegression(X, y, 1e-3, device="cpu"), 2, cfg,
+                      seed=1)
+    assert card.w.device.type == "cuda"
+    np.testing.assert_allclose(card.history, cpu.history, rtol=1e-5)
+    np.testing.assert_allclose(card.w.cpu().numpy(), cpu.w.numpy(),
+                               rtol=1e-5, atol=1e-6)

@@ -1,0 +1,29 @@
+"""repro_torch.data.libsvm against repro.data.libsvm: byte-identical data."""
+import numpy as np
+import pytest
+import torch
+
+from repro.data import libsvm as jlib
+from repro_torch.data import libsvm as plib
+
+
+@pytest.mark.parametrize("name", ["rcv1", "real-sim", "news20"])
+def test_synthetic_bytes_identical(name):
+    a = jlib.make_synthetic_libsvm(name, seed=3, scale=0.005)
+    b = plib.make_synthetic_libsvm(name, seed=3, scale=0.005)
+    assert a.X.dtype == b.X.dtype == np.float32
+    assert a.X.tobytes() == b.X.tobytes()
+    assert a.y.tobytes() == b.y.tobytes()
+    assert (a.name, a.l2_reg, a.n, a.p) == (b.name, b.l2_reg, b.n, b.p)
+    X, y = b.as_torch("cpu")
+    assert X.dtype == torch.float32 and np.array_equal(X.numpy(), b.X)
+    assert np.array_equal(y.numpy(), b.y)
+
+
+def test_parse_libsvm_file_matches(tmp_path):
+    path = tmp_path / "tiny.libsvm"
+    path.write_text("+1 1:0.5 3:-2\n\n-1 2:1.25 9:4\n0 1:1\n")
+    a = jlib.parse_libsvm_file(str(path), num_features=4)
+    b = plib.parse_libsvm_file(str(path), num_features=4)
+    assert np.array_equal(a.X, b.X) and np.array_equal(a.y, b.y)
+    assert b.X.shape == (3, 4) and b.y.tolist() == [1.0, -1.0, -1.0]

@@ -1,0 +1,98 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, never
+moves to the CPU on its own, and its smoke script refuses to run without a
+card.
+
+The import check runs in a subprocess because tests/conftest.py imports JAX
+into the test process.
+"""
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import objective
+from repro_torch.kernels import _build
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def _run(args, cwd, timeout=120):
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.run(args, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def test_port_imports_no_jax_and_no_repro():
+    proc = _run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    count, bad = proc.stdout.strip().split(" ", 1)
+    assert int(count) >= 20
+    assert bad == "[]", bad
+
+
+def test_source_never_names_jax_or_repro():
+    for path in PORT.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not set(roots) & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def test_no_cuda_and_no_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.zeros((4, 3), np.float32)
+    y = np.ones(4, np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        objective.LogisticRegression(X, y)
+    assert objective.LogisticRegression(X, y, device="cpu").X.device.type == "cpu"
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_build_targets_follow_the_sources():
+    for name in _build.SOURCES:
+        src, lib = _build.target(name)
+        assert src.is_file() and src.parent == PORT / "csrc"
+        assert lib.parent == REPO / "build" / "repro_torch"
+        assert lib.name.startswith(f"{name}-") and lib.suffix == ".so"
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run([sys.executable, "chip_smoke.py"], cwd=REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run([sys.executable, "chip_smoke.py"], cwd=tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
