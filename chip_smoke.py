@@ -4,12 +4,26 @@
     python3 chip_smoke.py          # from the repository root, on a machine with the card
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc
-(sm_90a), holds each kernel against its plain torch version on the card at
-the main path's shapes, drives the main path at the full width of the rcv1
-configuration (n = 20242, p = 2048) through the entry points a user calls
-(`run_asysvrg`, `run_sweep`), checks from the launch counters that every
-inner update went through `svrg_update` and every snapshot gradient through
-`logreg_grad`, and holds the card's epoch against the port's CPU path.
+(sm_90a), all at once, and holds each kernel against its plain torch
+version on the card at the main path's shapes: `svrg_update`, `logreg_grad`
+and `sweep_epoch` (rcv1 and news20 widths, the ring in shared and in device
+memory; its in-kernel generator bit for bit against `repro_torch.prng`).
+It then drives each path at the full width of the rcv1 configuration
+(n = 20242, p = 2048) through the entry points a user calls, with the
+launch counters set to 0 just before and read just after:
+
+  * `run_asysvrg`: every inner update through `svrg_update`, every snapshot
+    gradient through `logreg_grad`; one card epoch against the CPU path;
+  * `run_sweep` (batched): the same kernels, 5 rows in 2 groups;
+  * `run_sweep` with ``engine_mode="fused"``: one `sweep_epoch` launch per
+    group and epoch, `logreg_grad` for the AsySVRG group's snapshots, no
+    `svrg_update`; held against the batched sweep, and a row alone against
+    the row in its group.
+
+`sweep_epoch` is held against its plain version at the main path's shape
+(the 4-row rcv1 group, 40480 inner updates); its other cases (Hogwild!,
+news20, the ring in device memory) at 4096 inner updates, since the plain
+version steps in Python, one update at a time (~3 minutes for the full one).
 
 Each phase prints one JSON line; any failed check raises and the script
 exits non-zero. The second-to-last line is the kernel report, the last line
@@ -37,6 +51,8 @@ FP32_FLOP_PER_S = 67e12
 RCV1_EPOCHS = 2
 STEP_SIZE = 2.0        # benchmarks/table2_schemes.py's step
 THREADS = 8            # p = 8 simulated threads, tau = p - 1 = 7
+DROP_PROB = 0.02       # run_sweep's default unlock drop probability
+PLAIN_UPDATES = 4096   # sweep_epoch's side cases against its plain version
 
 
 def emit(**fields) -> None:
@@ -154,23 +170,135 @@ def phase_kernels(ds):
             raise AssertionError(f"logreg_grad disagrees: {rec}")
         singles[C] = rec
     report["logreg_grad"] = singles[1]
+    report["sweep_epoch"] = sweep_epoch_vs_plain(ds, gen)
+    check_draws(ds)
     emit(phase="kernels_vs_plain_done", kernel_names=sorted(report),
          seconds=time.perf_counter() - t0)
     return report
 
 
+def sweep_epoch_vs_plain(ds, gen):
+    """sweep_epoch against its plain version on random w and mu with the real
+    data, iterate and loss: at the main path's shape (the 4-row rcv1 AsySVRG
+    group, the full epoch), which is also timed; then a 1-row Hogwild! group
+    at rcv1, three news20 rows (shared memory at its ceiling) and one rcv1
+    row with tau = 40 (the ring in device memory) at PLAIN_UPDATES steps."""
+    from repro_torch import prng
+    from repro_torch.data.libsvm import make_synthetic_libsvm
+    from repro_torch.kernels.sweep_epoch.ops import sweep_epoch
+    from repro_torch.kernels.sweep_epoch.ref import sweep_epoch_ref
+
+    news20 = make_synthetic_libsvm("news20", scale=1.0)
+    X, y = ds.as_torch("cuda")
+    n, d = X.shape
+    full = THREADS * ((2 * n) // THREADS)
+    # (name, data, engine, tau, scheme ids, delay ids, buf_len, expected
+    # ring, inner updates)
+    cases = [("rcv1_asysvrg_4rows", (X, y, ds.l2_reg), "asysvrg",
+              [7, 7, 7, 0], [0, 1, 2, 0], [1, 1, 1, 0], 8, "shared", full),
+             ("rcv1_hogwild_unlock", (X, y, ds.l2_reg), "hogwild",
+              [7], [2], [1], 8, "shared", PLAIN_UPDATES),
+             ("news20_asysvrg_3rows", (*news20.as_torch("cuda"), news20.l2_reg),
+              "asysvrg", [9, 9, 9], [0, 1, 2], [1, 1, 2], 10, "shared",
+              PLAIN_UPDATES),
+             ("rcv1_unlock_tau40", (X, y, ds.l2_reg), "asysvrg",
+              [40], [2], [2], 41, "global", PLAIN_UPDATES)]
+    timed = None
+    for (name, (Xc, yc, l2), engine, tau, scheme, delay, buf_len, ring,
+         total) in cases:
+        C, dc = len(tau), Xc.shape[1]
+        w = 0.1 * torch.randn((C, dc), generator=gen, device="cuda")
+        mu = 1e-3 * torch.randn((C, dc), generator=gen, device="cuda")
+        keys = prng.keys_from_seeds(range(1000, 1000 + C), "cuda")
+        step = torch.full((C,), STEP_SIZE, device="cuda")
+        args = (Xc, yc, l2, w, mu if engine == "asysvrg" else None, keys,
+                step, tau, scheme, delay)
+        kw = dict(engine=engine, total=total, buf_len=buf_len, option=2,
+                  drop_prob=DROP_PROB)
+        before = dict(sweep_epoch.placements)
+        out, loss = sweep_epoch(*args, **kw)
+        torch.cuda.synchronize()
+        used = [k for k, v in sweep_epoch.placements.items() if v != before[k]]
+        t0 = time.perf_counter()
+        ref, ref_loss = sweep_epoch_ref(*args, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = float((out - ref).abs().max())
+        loss_err = float((loss - ref_loss).abs().max())
+        loss_rel = float(((loss - ref_loss).abs() / ref_loss.abs()).max())
+        rec = dict(kernel="sweep_epoch", case=name, rows=C, n=Xc.shape[0],
+                   d=dc, engine=engine, tau=tau, updates=total,
+                   placement=used, tol=1e-5, max_abs_err=err,
+                   bits_equal=bool(torch.equal(out, ref)),
+                   loss=loss.tolist(), loss_rtol=1e-6, loss_abs_err=loss_err,
+                   loss_rel_err=loss_rel,
+                   loss_bits_equal=bool(torch.equal(loss, ref_loss)),
+                   finite=bool(torch.isfinite(out).all()
+                               and torch.isfinite(loss).all()),
+                   plain_s=plain_s)
+        emit(phase="kernels_vs_plain", **rec)
+        if not (err <= 1e-5 and loss_rel <= 1e-6 and rec["finite"]
+                and used == [ring]):
+            raise AssertionError(f"sweep_epoch disagrees: {rec}")
+        if timed is None:
+            timed = (args, kw, C, max(err, loss_err), plain_s)
+
+    # time at the main path's shape, on the inputs just checked
+    args, kw, C, err, plain_s = timed
+    ms = median_ms(lambda: sweep_epoch(*args, **kw), reps=5, inner=1)
+    # bytes: X, y, w and mu read once, the iterates and losses written once;
+    # operations: ~15 d per row and update (two margins, two sample
+    # gradients, the update and the average) and ~2 n d per row for the
+    # loss, all at the float32 rate (the float64 sums would take longer);
+    # the integer hashing of the draws not counted
+    total = kw["total"]
+    bnd, by = bound_ms(4 * (n * d + n + 3 * C * d + C),
+                       C * (15 * total * d + 2 * n * d))
+    rec = dict(kernel="sweep_epoch", case="rcv1_asysvrg_4rows_timed", rows=C,
+               updates=total, ms=ms, us_per_update=1e3 * ms / total,
+               plain_ms=1e3 * plain_s,
+               plain_ms_from="one run of the plain version at this shape",
+               bound_ms=bnd, bound_by=by, library_ms=None, max_abs_err=err)
+    emit(phase="kernels_vs_plain", **rec)
+    return rec
+
+
+def check_draws(ds):
+    """The kernel's in-kernel threefry draws, bit for bit against prng.py."""
+    from repro_torch import prng
+    from repro_torch.kernels.sweep_epoch.ops import kernel_draws
+    from repro_torch.kernels.sweep_epoch.ref import draws
+
+    key = prng.PRNGKey(7, "cuda")
+    checked = []
+    for tau, delay_id in ((0, 0), (7, 1), (7, 2), (40, 2)):
+        got = kernel_draws(key, ds.n, ds.p, tau, delay_id, 64)
+        want = draws(key, ds.n, ds.p, tau, delay_id, 64)
+        equal = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+        checked.append(dict(tau=tau, delay_id=delay_id,
+                            idx_age_read_drop_equal=equal))
+        if not all(equal):
+            raise AssertionError(f"sweep_epoch draws differ from prng: {checked}")
+    emit(phase="sweep_epoch_draws", steps=64, n=ds.n, d=ds.p, checked=checked)
+
+
 def reset_counts():
     from repro_torch.kernels.logreg_grad.ops import logreg_grad
     from repro_torch.kernels.svrg_update.ops import svrg_update
+    from repro_torch.kernels.sweep_epoch.ops import sweep_epoch
     svrg_update.launches = 0
     logreg_grad.launches = 0
+    sweep_epoch.launches = 0
+    sweep_epoch.placements = dict.fromkeys(sweep_epoch.placements, 0)
 
 
 def read_counts():
     from repro_torch.kernels.logreg_grad.ops import logreg_grad
     from repro_torch.kernels.svrg_update.ops import svrg_update
+    from repro_torch.kernels.sweep_epoch.ops import sweep_epoch
     return {"svrg_update": svrg_update.launches,
-            "logreg_grad": logreg_grad.launches}
+            "logreg_grad": logreg_grad.launches,
+            "sweep_epoch": sweep_epoch.launches}
 
 
 def check_history(name, hist):
@@ -203,7 +331,7 @@ def phase_main_path(obj):
          wall_s_per_epoch=wall / RCV1_EPOCHS, launches=counts)
     check_history("run_asysvrg", res.history)
     if counts != {"svrg_update": RCV1_EPOCHS * total,
-                  "logreg_grad": RCV1_EPOCHS}:
+                  "logreg_grad": RCV1_EPOCHS, "sweep_epoch": 0}:
         raise AssertionError(f"launch counts {counts} != "
                              f"{RCV1_EPOCHS} x ({total} updates, 1 snapshot)")
     if tuple(res.w.shape) != (obj.p,) or not bool(torch.isfinite(res.w).all()):
@@ -236,19 +364,28 @@ def phase_card_vs_cpu(ds, obj, cfg):
         raise AssertionError(f"card and CPU path disagree: {rec}")
 
 
-def phase_sweep(obj):
-    """run_sweep at full width: the three schemes + serial SVRG (one
-    4-row group) and Hogwild! (a second group); then one row alone."""
-    from repro_torch.core.sweep import SweepSpec, plan_sweep, run_sweep
+def sweep_specs(obj, engine_mode):
+    """The three schemes + serial SVRG (one 4-row group) and Hogwild! (a
+    second group)."""
+    from repro_torch.core.sweep import SweepSpec
 
     total = THREADS * ((2 * obj.n) // THREADS)
     specs = [SweepSpec(seed=0, scheme=s, step_size=STEP_SIZE,
-                       num_threads=THREADS)
+                       num_threads=THREADS, engine_mode=engine_mode)
              for s in ("consistent", "inconsistent", "unlock")]
     specs += [SweepSpec(algo="svrg", step_size=STEP_SIZE, num_threads=THREADS,
-                        inner_steps=total),
+                        inner_steps=total, engine_mode=engine_mode),
               SweepSpec(algo="hogwild", scheme="unlock", step_size=STEP_SIZE,
-                        num_threads=THREADS, tau=-1)]
+                        num_threads=THREADS, tau=-1, engine_mode=engine_mode)]
+    return specs, total
+
+
+def phase_sweep(obj):
+    """run_sweep at full width, batched: 5 rows in 2 groups; then one row
+    alone."""
+    from repro_torch.core.sweep import plan_sweep, run_sweep
+
+    specs, total = sweep_specs(obj, "vmap")
     groups = [len(m) for m in plan_sweep(obj, RCV1_EPOCHS, specs).groups.values()]
     torch.cuda.synchronize()
     reset_counts()
@@ -259,8 +396,8 @@ def phase_sweep(obj):
     for c, spec in enumerate(specs):
         check_history(f"run_sweep row {c} ({spec.algo}/{spec.scheme})",
                       res.histories[c])
-    if counts["logreg_grad"] != RCV1_EPOCHS or \
-            counts["svrg_update"] != RCV1_EPOCHS * total:
+    if counts != {"logreg_grad": RCV1_EPOCHS,
+                  "svrg_update": RCV1_EPOCHS * total, "sweep_epoch": 0}:
         raise AssertionError(f"sweep launch counts {counts}")
     alone = run_sweep(obj, RCV1_EPOCHS, [specs[2]])
     dw = float(np.abs(alone.final_w[0] - res.final_w[2]).max())
@@ -276,6 +413,65 @@ def phase_sweep(obj):
     emit(**rec)
     if not np.allclose(alone.final_w[0], res.final_w[2], rtol=1e-5, atol=1e-6):
         raise AssertionError(f"row alone vs in its group: {rec['alone_vs_group']}")
+    return res, wall / RCV1_EPOCHS
+
+
+def phase_sweep_fused(obj, batched, batched_s_per_epoch):
+    """run_sweep at full width with engine_mode="fused": one sweep_epoch
+    launch per group and epoch, logreg_grad for the AsySVRG group's
+    snapshots, no svrg_update. Held against the batched sweep (the
+    card-vs-CPU limits: summation order only) and a row alone against the
+    row in its group (w bit-equal)."""
+    from repro_torch.core.sweep import plan_sweep, run_sweep
+    from repro_torch.kernels.sweep_epoch.ops import sweep_epoch
+
+    specs, _ = sweep_specs(obj, "fused")
+    plan = plan_sweep(obj, RCV1_EPOCHS, specs)
+    groups = [len(m) for m in plan.groups.values()]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_sweep(obj, RCV1_EPOCHS, specs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    placements = dict(sweep_epoch.placements)
+    for c, spec in enumerate(specs):
+        check_history(f"fused run_sweep row {c} ({spec.algo}/{spec.scheme})",
+                      res.histories[c])
+    want = {"sweep_epoch": len(groups) * RCV1_EPOCHS,
+            "logreg_grad": RCV1_EPOCHS, "svrg_update": 0}
+    loss_gap = float(np.max(np.abs(res.histories - batched.histories)
+                            / np.abs(batched.histories)))
+    dw = float(np.abs(res.final_w - batched.final_w).max())
+    alone = run_sweep(obj, RCV1_EPOCHS, [specs[2]])
+    a_dw = float(np.abs(alone.final_w[0] - res.final_w[2]).max())
+    a_dh = float(np.max(np.abs(alone.histories[0] - res.histories[2])
+                        / np.abs(res.histories[2])))
+    rec = dict(phase="run_sweep_fused", rows=len(specs), groups=groups,
+               epochs=RCV1_EPOCHS, wall_s=wall,
+               wall_s_per_epoch=wall / RCV1_EPOCHS,
+               batched_wall_s_per_epoch=batched_s_per_epoch,
+               launches=counts, placements=placements,
+               histories=res.histories.tolist(),
+               vs_batched=dict(history_rel_gap=loss_gap, max_abs_dw=dw,
+                               rtol_loss=1e-4, atol_w=1e-5),
+               alone_vs_group=dict(row=2, max_abs_dw=a_dw,
+                                   history_rel_gap=a_dh,
+                                   w_bits_equal=bool(np.array_equal(
+                                       alone.final_w[0], res.final_w[2])),
+                                   history_bits_equal=bool(np.array_equal(
+                                       alone.histories[0], res.histories[2]))))
+    emit(**rec)
+    if counts != want:
+        raise AssertionError(f"fused sweep launch counts {counts} != {want}")
+    if not (loss_gap <= 1e-4 and dw <= 1e-5):
+        raise AssertionError(f"fused and batched sweeps disagree: "
+                             f"{rec['vs_batched']}")
+    if not (rec["alone_vs_group"]["w_bits_equal"] and a_dh <= 1e-7):
+        raise AssertionError(f"fused row alone vs in its group: "
+                             f"{rec['alone_vs_group']}")
+    return counts
 
 
 def main() -> int:
@@ -310,18 +506,26 @@ def main() -> int:
     emit(phase="card_vs_cpu_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    phase_sweep(obj)
+    batched, batched_s = phase_sweep(obj)
     emit(phase="run_sweep_done", seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
+    fused_counts = phase_sweep_fused(obj, batched, batched_s)
+    emit(phase="run_sweep_fused_done", seconds=time.perf_counter() - t0)
+
     replaces = {"svrg_update": "src/repro/kernels/svrg_update/kernel.py:23",
-                "logreg_grad": "src/repro/kernels/logreg_grad/kernel.py:31"}
+                "logreg_grad": "src/repro/kernels/logreg_grad/kernel.py:31",
+                "sweep_epoch": "src/repro/kernels/sweep_epoch/kernel.py:92"}
+    # launches: each kernel's count in the run of its path — run_asysvrg for
+    # svrg_update and logreg_grad, the fused run_sweep for sweep_epoch
+    launches = {**counts, "sweep_epoch": fused_counts["sweep_epoch"]}
     kernels = []
-    for name in ("svrg_update", "logreg_grad"):
+    for name in ("svrg_update", "logreg_grad", "sweep_epoch"):
         rec = report[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": counts[name],
+            "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None})

@@ -219,7 +219,7 @@ def _masked_epochs(obj: Objective, data, w0, key, *, epochs: int,
     """``epochs`` outer iterations of C rows, with the loss recorded after
     every epoch (index 0 = loss at w0). ``epoch(live, w, sub)`` runs one
     epoch for the rows ``live`` (host indices) from their iterates and
-    epoch keys.
+    epoch keys, and returns their new iterates and the loss at each.
 
     ``row_epochs`` is each row's own budget (default: ``epochs``): past it a
     row FREEZES — its iterate passes through and its last live loss is
@@ -237,10 +237,10 @@ def _masked_epochs(obj: Objective, data, w0, key, *, epochs: int,
         loss = losses[-1]
         if live:
             sel = torch.tensor(live, device=w.device)
-            w_new = epoch(live, w[sel], sub[sel])
+            w_new, loss_new = epoch(live, w[sel], sub[sel])
             w, loss = w.clone(), loss.clone()
             w[sel] = w_new
-            loss[sel] = obj.flat_loss(data, w_new)
+            loss[sel] = loss_new
         losses.append(loss)
     return w, torch.stack(losses, dim=1)
 
@@ -253,10 +253,11 @@ def _asysvrg_epochs_core(obj: Objective, data, w0, key, eta, tau, scheme_id,
     `run_asysvrg` runs it with C = 1 and the sweep engine with a group."""
 
     def epoch(live, w, sub):
-        return _epoch_core(
+        w_new = _epoch_core(
             obj, data, w, sub, eta[live], [tau[c] for c in live],
             [scheme_id[c] for c in live], [delay_id[c] for c in live],
             total=total, buf_len=buf_len, option=option, drop_prob=drop_prob)
+        return w_new, obj.flat_loss(data, w_new)
 
     return _masked_epochs(obj, data, w0, key, epochs=epochs,
                           row_epochs=row_epochs, epoch=epoch)

@@ -78,7 +78,7 @@ def _hogwild_epochs_core(obj: Objective, data, w0, key, gamma0, decay, tau,
             [scheme_id[c] for c in live], [delay_id[c] for c in live],
             total=total, buf_len=buf_len, drop_prob=drop_prob)
         gamma[sel] = gamma[sel] * decay[sel]
-        return w_new
+        return w_new, obj.flat_loss(data, w_new)
 
     return _masked_epochs(obj, data, w0, key, epochs=epochs,
                           row_epochs=row_epochs, epoch=epoch)

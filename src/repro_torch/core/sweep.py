@@ -4,10 +4,22 @@ The port of `repro.core.sweep`. The paper's tables and figures compare
 AsySVRG vs Hogwild! vs serial SVRG over (reading scheme × thread count ×
 step size × seed × τ). Every configuration becomes a row of a group; a
 group runs as ONE batched engine over a ``[C, d]`` iterate block with the
-row's τ, scheme, delay kind, step size and epoch budget as data
-(`asysvrg._asysvrg_epochs_core` / `hogwild._hogwild_epochs_core`), so each
-inner update is one ``svrg_update`` launch for all C rows and each snapshot
-one ``logreg_grad`` launch.
+row's τ, scheme, delay kind, step size and epoch budget as data.
+
+**Engine modes.** ``SweepSpec.engine_mode`` picks how a group runs:
+
+  * ``"vmap"`` — the batched-rows engine (`asysvrg._asysvrg_epochs_core` /
+    `hogwild._hogwild_epochs_core`): each inner update is one
+    ``svrg_update`` launch for all C rows and each snapshot one
+    ``logreg_grad`` launch;
+  * ``"fused"`` — the sweep-epoch kernel
+    (`repro_torch.kernels.sweep_epoch`): per epoch one ``logreg_grad``
+    launch for the rows' snapshots (AsySVRG groups) and ONE
+    ``sweep_epoch`` launch for every inner update of every row.
+    `LogisticRegression` only.
+
+``""`` inherits `default_engine_mode()`: ``$REPRO_SWEEP_ENGINE``, else
+"vmap", as in the JAX package.
 
 **Masked per-row epochs.** ``SweepSpec.epochs`` (0 = inherit `run_sweep`'s
 ``epochs`` argument) lets rows of one call run different budgets: the group
@@ -31,14 +43,15 @@ other rows of the sweep — the same group key as the JAX package. Rows never
 mix inside the engine, so a row's results do not depend on the rows it is
 batched with (bit for bit on the CPU).
 
-Not in this slice, each raising `NotImplementedError`: ``engine_mode=
-"fused"`` (the K3 sweep-epoch megakernel, next slice), ``telemetry=True``
-(the obs slice) and a ``mesh`` (multi-GPU row sharding). None of them falls
-back to the batched path.
+Not in this slice, each raising `NotImplementedError`: ``telemetry=True``
+(the obs slice), a ``mesh`` (multi-GPU row sharding) and fused mode for an
+objective other than `LogisticRegression` (the objectives slice). None of
+them falls back to another path.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,13 +66,25 @@ from repro_torch.core.asysvrg import (
     _resolve_steps,
 )
 from repro_torch.core.hogwild import _hogwild_epochs_core, _resolve_hogwild_steps
-from repro_torch.core.objective import Objective, get_objective
+from repro_torch.core.objective import LogisticRegression, Objective, get_objective
+from repro_torch.kernels.sweep_epoch import fused_group_fn
 
 ALGOS = ("asysvrg", "hogwild", "svrg")
 # svrg rows run on the asysvrg engine (τ=0 degenerate case), so two engines
 _ENGINE_ASYSVRG = "asysvrg"
 _ENGINE_HOGWILD = "hogwild"
 ENGINE_MODES = ("vmap", "fused")
+_ENGINE_MODE_ENV = "REPRO_SWEEP_ENGINE"
+
+
+def default_engine_mode() -> str:
+    """The engine mode specs with ``engine_mode=""`` resolve to:
+    ``$REPRO_SWEEP_ENGINE`` when set (validated), else "vmap"."""
+    mode = os.environ.get(_ENGINE_MODE_ENV, "").strip().lower()
+    if mode and mode not in ENGINE_MODES:
+        raise ValueError(
+            f"{_ENGINE_MODE_ENV}={mode!r} — expected one of {ENGINE_MODES}")
+    return mode or "vmap"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +105,10 @@ class SweepSpec:
     ``objective`` optionally names a REGISTERED objective; "" means the
     objective the call passes in. All rows of one plan resolve to ONE
     objective.
-    ``engine_mode``: "vmap" (the batched-rows engine) or "" for it;
-    "fused" raises until the sweep-epoch megakernel is ported.
+    ``engine_mode``: "vmap" (the batched-rows engine), "fused" (the
+    sweep-epoch kernel, `repro_torch.kernels.sweep_epoch`), or "" for
+    `default_engine_mode()`. The mode joins the group key, so fused and
+    vmap rows never share a group.
     ``telemetry`` must stay False until the obs layer is ported.
     """
     seed: int = 0
@@ -178,7 +205,7 @@ class _Resolved(NamedTuple):
     passes_per_epoch: float  # repro-lint: ignore[RL004] derived from engine+total+n (all keyed); pass-count accounting only
     buf_len: int         # ring-buffer length, pinned per-row (see _resolve)
     epochs: int          # this row's outer-epoch budget
-    fused: bool = False  # the megakernel path; always False in this slice
+    fused: bool          # the sweep-epoch kernel path (engine_mode "fused")
 
 
 def _row_buf_len(tau: int, num_threads: int, total: int) -> int:
@@ -204,10 +231,6 @@ def _normalize_spec(spec: SweepSpec) -> SweepSpec:
         raise ValueError(
             f"unknown engine_mode {spec.engine_mode!r} "
             f"(expected one of {ENGINE_MODES}, or '' to inherit)")
-    if spec.engine_mode == "fused":
-        raise NotImplementedError(
-            "engine_mode='fused' needs the sweep_epoch megakernel (K3), "
-            "which the next slice of the port brings; use 'vmap'")
     if spec.telemetry:
         raise NotImplementedError(
             "telemetry=True needs repro.obs.telemetry, which the obs slice "
@@ -229,6 +252,7 @@ def _resolve(obj: Objective, spec: SweepSpec,
     epochs = spec.epochs or default_epochs
     if epochs < 1:
         raise ValueError(f"resolved epochs must be >= 1, got {epochs}")
+    fused = (spec.engine_mode or default_engine_mode()) == "fused"
 
     if spec.algo == "hogwild":
         _, total, tau = _resolve_hogwild_steps(obj.n, spec.num_threads,
@@ -236,20 +260,23 @@ def _resolve(obj: Objective, spec: SweepSpec,
         delay_id = DELAY_IDS["zero"] if tau == 0 else DELAY_IDS[spec.delay_kind]
         res = _Resolved(_ENGINE_HOGWILD, total, tau,
                         SCHEME_IDS[spec.scheme], delay_id, 0, 1.0,
-                        _row_buf_len(tau, spec.num_threads, total), epochs)
+                        _row_buf_len(tau, spec.num_threads, total), epochs,
+                        fused)
     elif spec.algo == "svrg":
         # the zero-delay degenerate case on the asysvrg engine (paper §3)
         total = spec.inner_steps or 2 * obj.n
         res = _Resolved(_ENGINE_ASYSVRG, total, 0,
                         SCHEME_IDS["consistent"], DELAY_IDS["zero"],
                         spec.option, 1.0 + total / obj.n,
-                        _row_buf_len(0, spec.num_threads, total), epochs)
+                        _row_buf_len(0, spec.num_threads, total), epochs,
+                        fused)
     else:
         _, _, total, tau = _resolve_steps(obj, spec.to_config())
         delay_id = DELAY_IDS["zero"] if tau == 0 else DELAY_IDS[spec.delay_kind]
         res = _Resolved(_ENGINE_ASYSVRG, total, tau, SCHEME_IDS[spec.scheme],
                         delay_id, spec.option, 1.0 + total / obj.n,
-                        _row_buf_len(tau, spec.num_threads, total), epochs)
+                        _row_buf_len(tau, spec.num_threads, total), epochs,
+                        fused)
     if res.total < 1:
         raise ValueError(
             f"resolved inner-step count M̃ must be >= 1, got {res.total} "
@@ -313,6 +340,11 @@ def plan_sweep(obj: Optional[Objective], epochs: int,
     obj = _resolve_objective(obj, specs)
     ofp = obj.fingerprint()
     resolved = tuple(_resolve(obj, s, epochs) for s in specs)
+    if any(r.fused for r in resolved) and type(obj) is not LogisticRegression:
+        raise NotImplementedError(
+            f"engine_mode='fused' runs LogisticRegression only, not "
+            f"{type(obj).__name__}; other objectives in fused mode come with "
+            "the objectives slice of the port — use engine_mode='vmap'")
     specs = tuple(_executed_spec(s, r) for s, r in zip(specs, resolved))
     groups: Dict[_GroupKey, List[int]] = {}
     for c, r in enumerate(resolved):
@@ -357,9 +389,14 @@ def _hogwild_group_fn(obj: Objective, num_data: int, epochs: int, total: int,
 
 
 def _group_fn(engine: str, *, obj: Objective, num_data: int, epochs: int,
-              total: int, buf_len: int, option: int, drop_prob: float):
-    """The group body for an engine (built directly; the runner cache
-    arrives with the service slice)."""
+              total: int, buf_len: int, option: int, drop_prob: float,
+              fused: bool):
+    """The group body for an engine and mode (built directly; the runner
+    cache arrives with the service slice)."""
+    if fused:
+        return fused_group_fn(obj, num_data, engine=engine, epochs=epochs,
+                              total=total, buf_len=buf_len, option=option,
+                              drop_prob=drop_prob)
     if engine == _ENGINE_HOGWILD:
         return _hogwild_group_fn(obj, num_data, epochs, total, buf_len,
                                  drop_prob)
@@ -397,7 +434,7 @@ def _dispatch_group(obj: Objective, specs: Sequence[SweepSpec],
                     drop_prob: float):
     """Run ONE group on the objective's device; returns (histories [rows,
     group_epochs+1], final_w [rows, flat_dim]) as numpy."""
-    _, engine, total, option, buf_len, _ = key_
+    _, engine, total, option, buf_len, fused = key_
     device = w_init.device
     f32 = dict(dtype=torch.float32, device=device)
     keys = prng.keys_from_seeds([specs[c].seed for c in members], device)
@@ -418,7 +455,7 @@ def _dispatch_group(obj: Objective, specs: Sequence[SweepSpec],
     data = obj.data_args()
     runner = _group_fn(engine, obj=obj, num_data=len(data),
                        epochs=group_epochs, total=total, buf_len=buf_len,
-                       option=option, drop_prob=drop_prob)
+                       option=option, drop_prob=drop_prob, fused=fused)
     w_fin, hist = runner(*data, *args)
     return hist.cpu().numpy(), w_fin.cpu().numpy()
 
@@ -444,9 +481,9 @@ def _assemble_result(specs: Tuple[SweepSpec, ...],
 def run_sweep(obj: Optional[Objective], epochs: int,
               specs: Sequence[SweepSpec], *, w0=None,
               drop_prob: float = 0.02, mesh=None) -> SweepResult:
-    """Run every spec for its epoch budget, one batched engine run per
-    (objective, engine, M̃, option, buf_len) group, on the objective's
-    device. ``mesh`` must be None: multi-GPU row sharding is a later
+    """Run every spec for its epoch budget, one engine run per
+    (objective, engine, M̃, option, buf_len, fused) group, on the
+    objective's device. ``mesh`` must be None: multi-GPU row sharding is a later
     slice."""
     if mesh is not None:
         raise NotImplementedError(

@@ -1,0 +1,5 @@
+"""The sweep-epoch kernel: one launch per (group × epoch) for every inner
+update of every row."""
+from repro_torch.kernels.sweep_epoch.ops import fused_group_fn, sweep_epoch
+
+__all__ = ["sweep_epoch", "fused_group_fn"]

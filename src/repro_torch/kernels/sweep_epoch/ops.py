@@ -1,0 +1,187 @@
+"""Public sweep-epoch op: device dispatch, input checks, launch counts, and
+the fused group body of `repro_torch.core.sweep`.
+
+`sweep_epoch` runs one epoch's inner loop for the C rows of a group and
+the loss at each row's new iterate: the plain version
+(`ref.sweep_epoch_ref`) for CPU tensors, the CUDA kernel
+(`csrc/sweep_epoch.cu`, one launch for every row) for CUDA tensors. It
+counts every launch in ``sweep_epoch.launches`` and, by where the ring
+buffer lives, in ``sweep_epoch.placements``: "shared" when the block's
+state fits the card's shared memory, "global" (a [C, buf_len, d] device
+buffer) when it does not. The loss runs in the same launch call, over all
+of the card's SMs.
+
+`fused_group_fn` returns a group function with the calling convention of
+the batched engine's group bodies, so `run_sweep` takes it per group when
+``SweepSpec.engine_mode == "fused"``: per epoch one ``logreg_grad`` launch
+for the rows' snapshot gradients μ (AsySVRG groups) and one
+``sweep_epoch`` launch, which also gives the epoch's losses.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.asysvrg import _masked_epochs
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.sweep_epoch import kernel
+from repro_torch.kernels.sweep_epoch.ref import sweep_epoch_ref
+
+SHARED, GLOBAL = "shared", "global"
+
+
+def _check_rows(C: int, tau, scheme_id, delay_id, *, engine: str, total: int,
+                buf_len: int, option: int, drop_prob: float) -> None:
+    if engine not in kernel.ENGINE_CODES:
+        raise ValueError(f"sweep_epoch: unknown engine {engine!r}")
+    if engine == "asysvrg" and option not in (1, 2):
+        raise ValueError(f"sweep_epoch: option must be 1 or 2, got {option}")
+    if not len(tau) == len(scheme_id) == len(delay_id) == C:
+        raise ValueError(f"sweep_epoch: tau, scheme_id and delay_id need one "
+                         f"entry per row ({C})")
+    if total < 1 or min(tau) < 0 or buf_len < max(tau) + 1:
+        raise ValueError(f"sweep_epoch: total {total}, buf_len {buf_len} "
+                         f"and tau {list(tau)} need total >= 1 and "
+                         "buf_len >= max(tau) + 1")
+    if not set(scheme_id) <= {0, 1, 2} or not set(delay_id) <= {0, 1, 2}:
+        raise ValueError("sweep_epoch: scheme and delay ids are 0, 1 or 2")
+    if not 0.0 <= drop_prob < 1.0:
+        raise ValueError(f"sweep_epoch: drop_prob {drop_prob} not in [0, 1)")
+
+
+def _placement(d: int, buf_len: int, engine: str,
+               device: torch.device) -> str:
+    """Where the ring lives, chosen by the block's state size alone."""
+    limit = kernel.max_shared_bytes(device)
+    if limit < 0:
+        raise RuntimeError(f"sweep_epoch: cannot read the shared memory "
+                           f"limit of {device}")
+    if kernel.shared_bytes(d, buf_len, engine, True) <= limit:
+        return SHARED
+    if kernel.shared_bytes(d, buf_len, engine, False) <= limit:
+        return GLOBAL
+    raise ValueError(f"sweep_epoch: d = {d} needs more shared memory than a "
+                     f"block has ({limit} bytes)")
+
+
+def sweep_epoch(X, y, l2: float, w, mu, keys, step, tau: Sequence[int],
+                scheme_id: Sequence[int], delay_id: Sequence[int], *,
+                engine: str, total: int, buf_len: int, option: int,
+                drop_prob: float):
+    """One epoch of ``total`` inner updates for each row of ``w``.
+
+    ``X`` [n, d], ``y`` [n], ``w`` [C, d] and ``mu`` [C, d] (None for
+    ``engine="hogwild"``) float32; ``keys`` [C, 2] int64 epoch keys;
+    ``step`` [C] float32 (η, or Hogwild!'s current γ); ``tau``,
+    ``scheme_id``, ``delay_id``: one host int per row. Returns the rows'
+    new iterates [C, d] (the last iterate, or for AsySVRG with option 2 the
+    average of the epoch's iterates) and the loss f at each [C].
+    """
+    C = w.shape[0]
+    _check_rows(C, tau, scheme_id, delay_id, engine=engine, total=total,
+                buf_len=buf_len, option=option, drop_prob=drop_prob)
+    svrg = engine == "asysvrg"
+    tensors = (X, y, w, keys, step) + ((mu,) if svrg else ())
+    if dispatch.route(*tensors) == dispatch.REFERENCE:
+        return sweep_epoch_ref(X, y, l2, w, mu if svrg else None, keys, step,
+                               tau, scheme_id, delay_id, engine=engine,
+                               total=total, buf_len=buf_len, option=option,
+                               drop_prob=drop_prob)
+    if X.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"sweep_epoch: X {tuple(X.shape)} and w "
+                         f"{tuple(w.shape)} must both be 2-D")
+    n, d = X.shape
+    if (y.shape != (n,) or w.shape[1] != d or keys.shape != (C, 2)
+            or step.shape != (C,) or (svrg and mu.shape != w.shape)):
+        raise ValueError(f"sweep_epoch: y {tuple(y.shape)}, w "
+                         f"{tuple(w.shape)}, keys {tuple(keys.shape)}, step "
+                         f"{tuple(step.shape)} do not fit X {tuple(X.shape)}")
+    if n >= 2**31 or C < 1:
+        raise ValueError(f"sweep_epoch: n = {n}, C = {C} out of range")
+    floats = (X, y, w, step) + ((mu,) if svrg else ())
+    if any(t.dtype != torch.float32 for t in floats) or keys.dtype != torch.int64:
+        raise TypeError("sweep_epoch: X, y, w, mu and step must be float32, "
+                        "keys int64")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sweep_epoch: inputs must be contiguous")
+    where = _placement(d, buf_len, engine, X.device)
+    row_ints = torch.tensor([list(tau), list(scheme_id), list(delay_id)],
+                            dtype=torch.int32, device=X.device)
+    ring = (torch.empty((C, buf_len, d), dtype=torch.float32, device=X.device)
+            if where == GLOBAL else None)
+    out = torch.empty((C, d), dtype=torch.float32, device=X.device)
+    terms = torch.empty((C, n), dtype=torch.float64, device=X.device)
+    loss = torch.empty(C, dtype=torch.float32, device=X.device)
+    rc = kernel.launch(X, y, w, mu if svrg else None, keys, step, row_ints,
+                       ring, out, terms, loss, engine=engine, total=total, buf_len=buf_len,
+                       option=option, drop=drop_prob > 0, l2=float(l2),
+                       keep_p=float(np.float32(1.0 - drop_prob)))
+    if rc != 0:
+        raise RuntimeError(f"sweep_epoch kernel launch failed: CUDA error {rc}")
+    sweep_epoch.launches += 1
+    sweep_epoch.placements[where] += 1
+    return out, loss
+
+
+sweep_epoch.launches = 0
+sweep_epoch.placements = {SHARED: 0, GLOBAL: 0}
+
+
+def kernel_draws(key, n: int, d: int, tau: int, delay_id: int, steps: int):
+    """The kernel's own draws for one CUDA key [2] over its first ``steps``
+    steps, as `ref.draws` returns them: sample index and read age [steps]
+    (int64), reader and drop uniforms [steps, d] (float32). For checking
+    the in-kernel generator against `repro_torch.prng`; not counted."""
+    if key.device.type != "cuda" or key.shape != (2,) or key.dtype != torch.int64:
+        raise ValueError("kernel_draws: key must be one int64 [2] CUDA key")
+    ints = dict(dtype=torch.int32, device=key.device)
+    idx, age = torch.empty(steps, **ints), torch.empty(steps, **ints)
+    read_u, drop_u = (torch.empty((steps, d), dtype=torch.float32,
+                                  device=key.device) for _ in range(2))
+    rc = kernel.draws(key.contiguous(), n, d, tau, delay_id, steps, idx, age,
+                      read_u, drop_u)
+    if rc != 0:
+        raise RuntimeError(f"sweep_epoch draws launch failed: CUDA error {rc}")
+    return idx.long(), age.long(), read_u, drop_u
+
+
+def fused_group_fn(obj, num_data: int, *, engine: str, epochs: int,
+                   total: int, buf_len: int, option: int, drop_prob: float):
+    """The fused group body for one (engine, M̃, option, buf_len) group:
+    ``group(*data_args, *row_args) -> (w_fin [C, d], hist [C, epochs+1])``,
+    the calling convention of `core.sweep._asysvrg_group_fn` /
+    `_hogwild_group_fn`. Epochs and per-row budgets run through
+    `core.asysvrg._masked_epochs`, each epoch's losses come from the
+    ``sweep_epoch`` launch; Hogwild! rows decay γ ← decay·γ after each live
+    epoch, in float32."""
+    hogwild = engine == "hogwild"
+
+    def group(*all_args):
+        data = all_args[:num_data]
+        X, y, l2 = data
+        if hogwild:
+            (keys, gammas, decays, taus, scheme_ids, delay_ids, row_epochs,
+             w0_rows) = all_args[num_data:]
+            steps = gammas.clone()
+        else:
+            keys, steps, taus, scheme_ids, delay_ids, row_epochs, w0_rows = \
+                all_args[num_data:]
+
+        def epoch(live, w, sub):
+            sel = torch.tensor(live, device=w.device)
+            mu = None if hogwild else obj.flat_full_grad(data, w)
+            w_new, loss = sweep_epoch(
+                X, y, l2, w, mu, sub, steps[sel], [taus[c] for c in live],
+                [scheme_ids[c] for c in live], [delay_ids[c] for c in live],
+                engine=engine, total=total, buf_len=buf_len, option=option,
+                drop_prob=drop_prob)
+            if hogwild:
+                steps[sel] = steps[sel] * decays[sel]
+            return w_new, loss
+
+        return _masked_epochs(obj, data, w0_rows, keys, epochs=epochs,
+                              row_epochs=row_epochs, epoch=epoch)
+
+    return group

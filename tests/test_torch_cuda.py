@@ -10,13 +10,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.config import SVRGConfig
 from repro_torch.core.asysvrg import run_asysvrg
 from repro_torch.core.objective import LogisticRegression
+from repro_torch.core.sweep import SweepSpec, run_sweep
 from repro_torch.kernels.logreg_grad.ops import logreg_grad
 from repro_torch.kernels.logreg_grad.ref import logreg_grad_ref
 from repro_torch.kernels.svrg_update.ops import svrg_update
 from repro_torch.kernels.svrg_update.ref import svrg_update_ref
+from repro_torch.kernels.sweep_epoch import kernel
+from repro_torch.kernels.sweep_epoch.ops import kernel_draws, sweep_epoch
+from repro_torch.kernels.sweep_epoch.ref import draws, sweep_epoch_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +86,84 @@ def test_engine_on_the_card_matches_cpu(gen):
     np.testing.assert_allclose(card.history, cpu.history, rtol=1e-5)
     np.testing.assert_allclose(card.w.cpu().numpy(), cpu.w.numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+def _sweep_inputs(gen, n, d, C):
+    X = torch.randn((n, d), generator=gen, device="cuda") / d ** 0.5
+    y = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    w = 0.1 * torch.randn((C, d), generator=gen, device="cuda")
+    mu = 0.01 * torch.randn((C, d), generator=gen, device="cuda")
+    keys = prng.keys_from_seeds(range(C), "cuda")
+    return X, y, w, mu, keys
+
+
+@pytest.mark.parametrize("d", [33, 1000])
+@pytest.mark.parametrize("engine,option", [("asysvrg", 2), ("asysvrg", 1),
+                                           ("hogwild", 0)])
+@pytest.mark.parametrize("placement", ["shared", "global"])
+def test_sweep_epoch_kernel_matches_plain(gen, d, engine, option, placement):
+    """Each scheme and delay kind, with drops; the ring in shared memory
+    (τ = 3) or, past the block's shared memory, in device memory. Limit
+    1e-5 on the iterate, rtol 1e-6 on the loss (the float64 sums differ in
+    order only)."""
+    tau = 3 if placement == "shared" else {33: 1800, 1000: 60}[d]
+    X, y, w, mu, keys = _sweep_inputs(gen, 300, d, 3)
+    step = torch.tensor([0.5, 0.3, 0.2], device="cuda")
+    args = (X, y, 1e-3, w, mu, keys, step, [tau, 1, tau], [0, 1, 2], [2, 1, 2])
+    kw = dict(engine=engine, total=64, buf_len=tau + 1, option=option,
+              drop_prob=0.1)
+    before = dict(sweep_epoch.placements)
+    out, loss = sweep_epoch(*args, **kw)
+    torch.cuda.synchronize()
+    assert sweep_epoch.placements[placement] == before[placement] + 1
+    want, want_loss = sweep_epoch_ref(*args, **kw)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - want).abs().max()) <= 1e-5
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=0.0)
+
+
+def test_sweep_epoch_hogwild_ring_stays_shared_longer(gen):
+    """Hogwild! keeps no u0, mu or acc, so its ring stays in shared memory
+    at a length where an AsySVRG row's ring moves to device memory."""
+    d = 1000
+    limit = kernel.max_shared_bytes(torch.device("cuda"))
+    buf_len = max(b for b in range(1, 200)
+                  if kernel.shared_bytes(d, b, "hogwild", True) <= limit)
+    assert kernel.shared_bytes(d, buf_len, "asysvrg", True) > limit
+    X, y, w, _, keys = _sweep_inputs(gen, 300, d, 2)
+    step = torch.tensor([0.5, 0.3], device="cuda")
+    tau = buf_len - 1
+    args = (X, y, 1e-3, w, None, keys, step, [tau, 2], [2, 1], [2, 1])
+    kw = dict(engine="hogwild", total=64, buf_len=buf_len, option=0,
+              drop_prob=0.1)
+    before = sweep_epoch.placements["shared"]
+    out, loss = sweep_epoch(*args, **kw)
+    assert sweep_epoch.placements["shared"] == before + 1
+    want, want_loss = sweep_epoch_ref(*args, **kw)
+    assert float((out - want).abs().max()) <= 1e-5
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("n,d", [(97, 33), (20242, 1000)])
+@pytest.mark.parametrize("tau,delay_id", [(0, 0), (5, 1), (7, 2)])
+def test_sweep_epoch_draws_equal_prng(gen, n, d, tau, delay_id):
+    key = prng.PRNGKey(1234, "cuda")
+    got = kernel_draws(key, n, d, tau, delay_id, 40)
+    want = draws(key, n, d, tau, delay_id, 40)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_fused_row_alone_equals_row_in_group(gen):
+    rng = np.random.default_rng(0)
+    X = (rng.standard_normal((96, 64)) / 8).astype(np.float32)
+    y = np.where(rng.random(96) < 0.5, -1.0, 1.0).astype(np.float32)
+    obj = LogisticRegression(X, y, 1e-3)
+    specs = [SweepSpec(scheme=s, step_size=0.5, num_threads=4, inner_steps=32,
+                       seed=c, engine_mode="fused")
+             for c, s in enumerate(("consistent", "inconsistent", "unlock"))]
+    group = run_sweep(obj, 2, specs)
+    for c, spec in enumerate(specs):
+        alone = run_sweep(obj, 2, [spec])
+        assert np.array_equal(alone.final_w[0], group.final_w[c])
+        assert np.array_equal(alone.histories[0], group.histories[c])

@@ -87,8 +87,7 @@ def test_short_row_equals_shorter_run(runs):
     assert np.all(pres.histories[9, 2:] == pres.histories[9, 1])
 
 
-@pytest.mark.parametrize("kwargs", [dict(engine_mode="fused"),
-                                    dict(telemetry=True)])
+@pytest.mark.parametrize("kwargs", [dict(telemetry=True)])
 def test_unported_options_raise(runs, kwargs):
     _, po, _, _ = runs
     with pytest.raises(NotImplementedError):

@@ -4,15 +4,24 @@
     python3 tools/profile_port.py
 
 At the rcv1 width (n = 20242, p = 2048; data from
-`repro_torch.data.libsvm.make_synthetic_libsvm("rcv1")`), for a single run
-(1 row) and a sweep group (4 rows, one per scheme plus serial SVRG), it runs
-2048 inner updates of `repro_torch.core.asysvrg._epoch_core`:
+`repro_torch.data.libsvm.make_synthetic_libsvm("rcv1")`):
 
-  * once without the profiler, timed on the host clock around a
-    synchronised run: wall seconds per inner update;
-  * once under ``torch.profiler`` (CPU + CUDA activities): the device-busy
-    share of the window (summed kernel time over wall time), the device
-    kernels by total time, and the host ops by self time.
+  * the batched engine: for a single run (1 row) and a sweep group (4 rows,
+    one per scheme plus serial SVRG), 2048 inner updates of
+    `repro_torch.core.asysvrg._epoch_core`, once without the profiler
+    (host clock around a synchronised run: wall seconds per inner update)
+    and once under ``torch.profiler`` (CPU + CUDA activities: the
+    device-busy share of the window, the device kernels by total time, the
+    host ops by self time);
+  * the fused engine: one epoch of `run_sweep` with
+    ``engine_mode="fused"`` over the 5 rows `chip_smoke.py` runs (4-row
+    AsySVRG/SVRG group + 1 Hogwild! row), the same two ways;
+  * the `sweep_epoch` kernel alone (CUDA events, median of 3 launches of
+    4096 inner updates): per scheme and engine on one row, by group width
+    (1 to 528 rows), at the news20 width (d = 4096) and with the ring in
+    device memory (τ = 40). Each launch ends with the rows' loss, two more
+    kernels over all SMs that read X once for all rows; a launch of one
+    update times that loss pass.
 
 Prints one JSON line per configuration, and the card's name and power limit
 first. Needs a CUDA device; fails without one.
@@ -55,25 +64,31 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
-def profile(obj, rows: int, steps: int) -> dict:
-    from torch.autograd import DeviceType
+def _profiled(fn):
+    """(wall s without the profiler, wall s under it, key_averages) of one
+    synchronised call of ``fn``, after a warm-up call."""
     from torch.profiler import ProfilerActivity
 
-    run = _epoch(obj, rows)
-    run(64)
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run(steps)
+    fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-
     with torch.profiler.profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(steps)
+        fn()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    events = prof.key_averages()
+    return wall, prof_wall, prof.key_averages()
+
+
+def profile(obj, rows: int, steps: int) -> dict:
+    from torch.autograd import DeviceType
+
+    run = _epoch(obj, rows)
+    wall, prof_wall, events = _profiled(lambda: run(steps))
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=_device_time_us, reverse=True)
     busy_us = sum(_device_time_us(e) for e in kernels)
@@ -97,6 +112,102 @@ def profile(obj, rows: int, steps: int) -> dict:
     }
 
 
+def profile_fused(obj) -> dict:
+    """One fused run_sweep epoch over chip_smoke.py's 5 rows."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.core.sweep import SweepSpec, run_sweep
+
+    total = 8 * ((2 * obj.n) // 8)
+    specs = [SweepSpec(scheme=s, step_size=2.0, engine_mode="fused")
+             for s in ("consistent", "inconsistent", "unlock")]
+    specs += [SweepSpec(algo="svrg", step_size=2.0, inner_steps=total,
+                        engine_mode="fused"),
+              SweepSpec(algo="hogwild", scheme="unlock", step_size=2.0,
+                        tau=-1, engine_mode="fused")]
+    wall, prof_wall, events = _profiled(lambda: run_sweep(obj, 1, specs))
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=_device_time_us, reverse=True)
+    busy_us = sum(_device_time_us(e) for e in kernels)
+    return {
+        "engine": "fused", "rows": len(specs), "epochs": 1, "n": obj.n,
+        "p": obj.p, "wall_s": wall, "profiled_wall_s": prof_wall,
+        "device_busy_share": busy_us * 1e-6 / prof_wall,
+        "device_kernels": [
+            {"name": e.key[:80], "count": e.count,
+             "total_us": _device_time_us(e)} for e in kernels[:8]],
+    }
+
+
+def _kernel_ms(fn, reps: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of one call, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return sorted(times)[len(times) // 2]
+
+
+def profile_sweep_epoch(ds, news20, steps: int = 4096):
+    """The sweep_epoch kernel alone: µs per inner update by case."""
+    from repro_torch import prng
+    from repro_torch.kernels.sweep_epoch.ops import sweep_epoch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data = {"rcv1": (*ds.as_torch("cuda"), ds.l2_reg),
+            "news20": (*news20.as_torch("cuda"), news20.l2_reg)}
+    # (case, data, engine, rows, tau, scheme id, delay id, drop_prob)
+    cases = [("consistent", "rcv1", "asysvrg", 1, 7, 0, 1, 0.0),
+             ("consistent_tau0", "rcv1", "asysvrg", 1, 0, 0, 0, 0.0),
+             ("inconsistent", "rcv1", "asysvrg", 1, 7, 1, 1, 0.0),
+             ("unlock", "rcv1", "asysvrg", 1, 7, 2, 1, 0.0),
+             ("unlock_drop", "rcv1", "asysvrg", 1, 7, 2, 1, 0.02),
+             ("hogwild_unlock_drop", "rcv1", "hogwild", 1, 7, 2, 1, 0.02),
+             ("news20_inconsistent", "news20", "asysvrg", 1, 9, 1, 1, 0.0),
+             ("global_ring_unlock_tau40", "rcv1", "asysvrg", 1, 40, 2, 2, 0.0)]
+    cases += [(f"inconsistent_{C}_rows", "rcv1", "asysvrg", C, 7, 1, 1, 0.0)
+              for C in (4, 32, 132, 264, 528)]
+    for name, which, engine, C, tau, sid, did, drop in cases:
+        X, y, l2 = data[which]
+        d = X.shape[1]
+        w = 0.1 * torch.randn((C, d), generator=gen, device="cuda")
+        mu = 1e-3 * torch.randn((C, d), generator=gen, device="cuda")
+        keys = prng.keys_from_seeds(range(C), "cuda")
+        step = torch.full((C,), 2.0, device="cuda")
+        before = dict(sweep_epoch.placements)
+        ms = _kernel_ms(lambda: sweep_epoch(
+            X, y, l2, w, mu if engine == "asysvrg" else None, keys, step,
+            [tau] * C, [sid] * C, [did] * C, engine=engine, total=steps,
+            buf_len=max(8, tau + 1), option=2, drop_prob=drop))
+        ring = [k for k, v in sweep_epoch.placements.items() if v != before[k]]
+        print(json.dumps({"kernel": "sweep_epoch", "case": name, "data": which,
+                          "d": d, "engine": engine, "rows": C, "tau": tau,
+                          "updates": steps, "ring": ring, "ms": ms,
+                          "us_per_update": 1e3 * ms / steps}), flush=True)
+    # one update: the launch is then its loss pass, one read of X for all rows
+    for which, C in (("rcv1", 1), ("rcv1", 4), ("news20", 1)):
+        X, y, l2 = data[which]
+        d = X.shape[1]
+        w = 0.1 * torch.randn((C, d), generator=gen, device="cuda")
+        mu = 1e-3 * torch.randn((C, d), generator=gen, device="cuda")
+        ms = _kernel_ms(lambda: sweep_epoch(
+            X, y, l2, w, mu, prng.keys_from_seeds(range(C), "cuda"),
+            torch.full((C,), 2.0, device="cuda"), [7] * C, [1] * C, [1] * C,
+            engine="asysvrg", total=1, buf_len=8, option=2, drop_prob=0.0))
+        print(json.dumps({"kernel": "sweep_epoch", "case": "loss_pass",
+                          "data": which, "n": X.shape[0], "d": d, "rows": C,
+                          "updates": 1, "ms": ms,
+                          "x_gb_per_s": X.numel() * 4 / ms / 1e6}),
+              flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -111,6 +222,8 @@ def main() -> int:
     obj = LogisticRegression(ds.X, ds.y, ds.l2_reg)
     for rows in (1, 4):
         print(json.dumps(profile(obj, rows, STEPS)), flush=True)
+    print(json.dumps(profile_fused(obj)), flush=True)
+    profile_sweep_epoch(ds, make_synthetic_libsvm("news20", scale=1.0))
     return 0
 
 
