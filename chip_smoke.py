@@ -7,10 +7,13 @@ It builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc
 (sm_90a), all at once, and holds each kernel against its plain torch
 version on the card at the main path's shapes: `svrg_update`, `logreg_grad`
 and `sweep_epoch` (rcv1 and news20 widths, the ring in shared and in device
-memory; its in-kernel generator bit for bit against `repro_torch.prng`).
-It then drives each path at the full width of the rcv1 configuration
-(n = 20242, p = 2048) through the entry points a user calls, with the
-launch counters set to 0 just before and read just after:
+memory; its in-kernel generator bit for bit against `repro_torch.prng`), and
+`flash_attention` at gemma3-4b's prefill shapes (windows 0 and 1024, bf16
+and float32, a ragged length, GQA 16:1), timed beside its plain version and
+`scaled_dot_product_attention`. It then drives each path through the entry
+points a user calls, with the launch counters set to 0 just before and read
+just after; the paper's paths at the full width of the rcv1 configuration
+(n = 20242, p = 2048):
 
   * `run_asysvrg`: every inner update through `svrg_update`, every snapshot
     gradient through `logreg_grad`; one card epoch against the CPU path;
@@ -18,7 +21,17 @@ launch counters set to 0 just before and read just after:
   * `run_sweep` with ``engine_mode="fused"``: one `sweep_epoch` launch per
     group and epoch, `logreg_grad` for the AsySVRG group's snapshots, no
     `svrg_update`; held against the batched sweep, and a row alone against
-    the row in its group.
+    the row in its group;
+
+and the serve path at the full width of gemma3-4b (34 layers, d_model 2560,
+vocab 262144; random weights from a seed, bf16 activations):
+
+  * `launch.serve.run` (`build_model` -> `generate`): batch 4, prompt 2048,
+    16 new tokens; one `flash_attention` launch per prefill layer, none in
+    decode; prefill seconds, decode ms per token and tokens/s;
+  * the same path at 2 layers (one window, one global) in float32, batch 1,
+    on the card and on the CPU from the same weights: prefill and decode
+    logits and greedy tokens.
 
 `sweep_epoch` is held against its plain version at the main path's shape
 (the 4-row rcv1 group, 40480 inner updates); its other cases (Hogwild!,
@@ -48,6 +61,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # tensor cores, the unit both kernels run on.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12   # dense bf16 on the tensor cores
 RCV1_EPOCHS = 2
 STEP_SIZE = 2.0        # benchmarks/table2_schemes.py's step
 THREADS = 8            # p = 8 simulated threads, tau = p - 1 = 7
@@ -59,11 +73,11 @@ def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
     """(least time in ms, what bounds it) for moving ``nbytes`` through HBM
-    and doing ``flops`` float32 operations."""
+    and doing ``flops`` operations at ``flop_per_s`` (float32 by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOP_PER_S
+    t_ops = flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -172,6 +186,7 @@ def phase_kernels(ds):
     report["logreg_grad"] = singles[1]
     report["sweep_epoch"] = sweep_epoch_vs_plain(ds, gen)
     check_draws(ds)
+    report["flash_attention"] = flash_attention_vs_plain(gen)
     emit(phase="kernels_vs_plain_done", kernel_names=sorted(report),
          seconds=time.perf_counter() - t0)
     return report
@@ -282,7 +297,111 @@ def check_draws(ds):
     emit(phase="sweep_epoch_draws", steps=64, n=ds.n, d=ds.p, checked=checked)
 
 
+# gemma3-4b's prefill at the serve phase's shape: 29 window-1024 layers and
+# 5 global ones (models/transformer.py's _layer_flags)
+SERVE_ARCH = "gemma3-4b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 16
+LAYER_MIX = {1024: 29, 0: 5}
+
+
+def attention_pairs(S: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one head under the causal mask and
+    ``window`` (0 = global)."""
+    rows = np.arange(S, dtype=np.int64) + 1
+    return int(np.minimum(rows, window).sum() if window else rows.sum())
+
+
+def flash_attention_vs_plain(gen):
+    """flash_attention against its plain version on the same CUDA tensors:
+    at the serve path's shapes (B 4, S 2048, N 8, K 4, h 256; windows 1024
+    and 0) in bf16 (atol/rtol 3e-2: the plain version rounds scores and
+    probabilities to bf16, the kernel keeps them in float32) and float32
+    (2e-5, summation order), a ragged S = 2000 and GQA 16:1 at h = 128. The
+    bf16 main cases are timed beside the plain version and
+    `scaled_dot_product_attention` (the yardstick; the port never calls
+    it). Returns the kernel's record, per launch averaged over one
+    prefill's 34 layers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import gqa_flash
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def plain(q, k, v, window):
+        G = q.shape[2] // k.shape[2]
+        kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1) for t in (k, v))
+        return attention_ref(q.transpose(1, 2), kt, vt, window=window
+                             ).transpose(1, 2)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (name, B, S, N, K, h, window, dtype, tol, timed)
+    cases = [("serve_window_bf16", 4, 2048, 8, 4, 256, 1024, bf16, 3e-2, True),
+             ("serve_global_bf16", 4, 2048, 8, 4, 256, 0, bf16, 3e-2, True),
+             ("serve_window_f32", 4, 2048, 8, 4, 256, 1024, f32, 2e-5, False),
+             ("serve_global_f32", 4, 2048, 8, 4, 256, 0, f32, 2e-5, False),
+             ("ragged_S2000_window_bf16", 4, 2000, 8, 4, 256, 1024, bf16, 3e-2,
+              False),
+             ("gqa_16to1_h128_bf16", 4, 2048, 16, 1, 128, 0, bf16, 3e-2, False)]
+    timed = {}
+    for name, B, S, N, K, h, window, dtype, tol, time_it in cases:
+        q = torch.randn((B, S, N, h), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, S, K, h), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        out = gqa_flash(q, k, v, window=window)
+        ref = plain(q, k, v, window)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        ok = bool((diff <= tol + tol * ref.float().abs()).all())
+        size = q.element_size()
+        pairs = B * N * attention_pairs(S, window)
+        bnd, by = bound_ms(size * (2 * B * S * N * h + 2 * B * S * K * h),
+                           4 * h * pairs,
+                           BF16_FLOP_PER_S if dtype == bf16 else FP32_FLOP_PER_S)
+        rec = dict(kernel="flash_attention", case=name, B=B, S=S, N=N, K=K,
+                   h=h, window=window, dtype=str(dtype).replace("torch.", ""),
+                   atol=tol, rtol=tol, max_abs_err=float(diff.max()),
+                   within_tol=ok, finite=bool(torch.isfinite(out).all()),
+                   pairs=pairs, bound_ms=bnd, bound_by=by)
+        if time_it:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            pos = torch.arange(S, device="cuda")
+            band = ((pos[:, None] >= pos[None, :])
+                    & (pos[:, None] - pos[None, :] < window))
+
+            def library():
+                if window:
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=band, enable_gqa=True)
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            rec.update(
+                ms=median_ms(lambda: gqa_flash(q, k, v, window=window),
+                             reps=5, inner=5),
+                plain_ms=median_ms(lambda: plain(q, k, v, window), reps=5,
+                                   inner=5),
+                library_ms=median_ms(library, reps=5, inner=5),
+                library_max_abs_err=float((library().transpose(1, 2).float()
+                                           - ref.float()).abs().max()))
+            timed[window] = rec
+        emit(phase="kernels_vs_plain", **rec)
+        if not (ok and rec["finite"]):
+            raise AssertionError(f"flash_attention disagrees: {rec}")
+    layers = sum(LAYER_MIX.values())
+    mix = {key: sum(n * timed[w][key] for w, n in LAYER_MIX.items()) / layers
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    (bound_by,) = {t["bound_by"] for t in timed.values()}
+    rec = dict(kernel="flash_attention", case="serve_prefill_mix",
+               per="launch, averaged over one prefill's layers",
+               layers=LAYER_MIX, **mix, bound_by=bound_by,
+               max_abs_err=max(t["max_abs_err"] for t in timed.values()),
+               per_prefill_ms=mix["ms"] * layers,
+               per_prefill_bound_ms=mix["bound_ms"] * layers)
+    emit(phase="kernels_vs_plain", **rec)
+    return rec
+
+
 def reset_counts():
+    from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.kernels.logreg_grad.ops import logreg_grad
     from repro_torch.kernels.svrg_update.ops import svrg_update
     from repro_torch.kernels.sweep_epoch.ops import sweep_epoch
@@ -290,15 +409,18 @@ def reset_counts():
     logreg_grad.launches = 0
     sweep_epoch.launches = 0
     sweep_epoch.placements = dict.fromkeys(sweep_epoch.placements, 0)
+    gqa_flash.launches = 0
 
 
 def read_counts():
+    from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.kernels.logreg_grad.ops import logreg_grad
     from repro_torch.kernels.svrg_update.ops import svrg_update
     from repro_torch.kernels.sweep_epoch.ops import sweep_epoch
     return {"svrg_update": svrg_update.launches,
             "logreg_grad": logreg_grad.launches,
-            "sweep_epoch": sweep_epoch.launches}
+            "sweep_epoch": sweep_epoch.launches,
+            "flash_attention": gqa_flash.launches}
 
 
 def check_history(name, hist):
@@ -331,7 +453,8 @@ def phase_main_path(obj):
          wall_s_per_epoch=wall / RCV1_EPOCHS, launches=counts)
     check_history("run_asysvrg", res.history)
     if counts != {"svrg_update": RCV1_EPOCHS * total,
-                  "logreg_grad": RCV1_EPOCHS, "sweep_epoch": 0}:
+                  "logreg_grad": RCV1_EPOCHS, "sweep_epoch": 0,
+                  "flash_attention": 0}:
         raise AssertionError(f"launch counts {counts} != "
                              f"{RCV1_EPOCHS} x ({total} updates, 1 snapshot)")
     if tuple(res.w.shape) != (obj.p,) or not bool(torch.isfinite(res.w).all()):
@@ -397,7 +520,8 @@ def phase_sweep(obj):
         check_history(f"run_sweep row {c} ({spec.algo}/{spec.scheme})",
                       res.histories[c])
     if counts != {"logreg_grad": RCV1_EPOCHS,
-                  "svrg_update": RCV1_EPOCHS * total, "sweep_epoch": 0}:
+                  "svrg_update": RCV1_EPOCHS * total, "sweep_epoch": 0,
+                  "flash_attention": 0}:
         raise AssertionError(f"sweep launch counts {counts}")
     alone = run_sweep(obj, RCV1_EPOCHS, [specs[2]])
     dw = float(np.abs(alone.final_w[0] - res.final_w[2]).max())
@@ -440,7 +564,8 @@ def phase_sweep_fused(obj, batched, batched_s_per_epoch):
         check_history(f"fused run_sweep row {c} ({spec.algo}/{spec.scheme})",
                       res.histories[c])
     want = {"sweep_epoch": len(groups) * RCV1_EPOCHS,
-            "logreg_grad": RCV1_EPOCHS, "svrg_update": 0}
+            "logreg_grad": RCV1_EPOCHS, "svrg_update": 0,
+            "flash_attention": 0}
     loss_gap = float(np.max(np.abs(res.histories - batched.histories)
                             / np.abs(batched.histories)))
     dw = float(np.abs(res.final_w - batched.final_w).max())
@@ -472,6 +597,137 @@ def phase_sweep_fused(obj, batched, batched_s_per_epoch):
         raise AssertionError(f"fused row alone vs in its group: "
                              f"{rec['alone_vs_group']}")
     return counts
+
+
+def greedy_steps(bundle, params, batch, cache_len: int, new_tokens: int):
+    """The serve session stepped by hand, greedy: (prefill logits, each
+    decode's logits, the tokens [B, new_tokens]), nothing synchronised."""
+    from repro_torch.serve.loop import ServeSession
+
+    sess = ServeSession(bundle, params, cache_len)
+    logits = [sess.prefill(batch)]
+    toks = [torch.argmax(logits[0], dim=-1)]
+    for _ in range(new_tokens - 1):
+        logits.append(sess.decode(toks[-1]))
+        toks.append(torch.argmax(logits[-1], dim=-1))
+    return logits, torch.stack(toks, dim=1)
+
+
+def phase_serve(report):
+    """The serve path at gemma3-4b's full width through `launch.serve.run`
+    (the CLI's function: build_model, init_from_defs, prompts from
+    prng.randint, generate): one flash_attention launch per prefill layer,
+    none in decode. Then the same session stepped by hand, synchronised
+    after the prefill and after the decodes, for the split of the time."""
+    from repro_torch.launch.serve import run
+    from repro_torch.models.transformer import _layer_flags
+    from repro_torch.serve.loop import ServeSession
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = run(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              new_tokens=SERVE_NEW, device="cuda")
+    counts = read_counts()
+    cfg, bundle, params = res["cfg"], res["bundle"], res["params"]
+    windows = _layer_flags(cfg).tolist()
+    want = {"svrg_update": 0, "logreg_grad": 0, "sweep_epoch": 0,
+            "flash_attention": cfg.num_layers}
+    if counts != want or {w: windows.count(w) for w in set(windows)} != LAYER_MIX:
+        raise AssertionError(f"serve launch counts {counts} != {want}")
+
+    cache_len = SERVE_PROMPT + SERVE_NEW
+    batch = {"tokens": res["prompts"]}
+    sess = ServeSession(bundle, params, cache_len)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = sess.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = read_counts()
+    finite = torch.isfinite(logits).all()
+    toks = [torch.argmax(logits, dim=-1)]
+    t0 = time.perf_counter()
+    for _ in range(SERVE_NEW - 1):
+        logits = sess.decode(toks[-1])
+        finite &= torch.isfinite(logits).all()
+        toks.append(torch.argmax(logits, dim=-1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    after_decode = read_counts()
+    stepwise = torch.stack(toks, dim=1).cpu()
+    k4 = report["flash_attention"]["per_prefill_ms"]
+    rec = dict(phase="serve", arch=cfg.name, layers=cfg.num_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab_size, batch=SERVE_BATCH,
+               prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, cache_len=cache_len,
+               dtype=cfg.dtype, launches=counts,
+               generate_s=res["seconds"], tokens_per_s=res["tokens_per_s"],
+               prefill_s=prefill_s,
+               decode_ms_per_token=1e3 * decode_s / (SERVE_NEW - 1),
+               flash_launches_prefill=after_prefill["flash_attention"],
+               flash_launches_decode=(after_decode["flash_attention"]
+                                      - after_prefill["flash_attention"]),
+               k4_ms_per_prefill=k4, k4_share_of_prefill=k4 / (1e3 * prefill_s),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               logits_finite=bool(finite),
+               tokens=res["tokens"][:, :8].tolist(),
+               stepwise_equals_generate=bool(torch.equal(stepwise,
+                                                         res["tokens"])))
+    emit(**rec)
+    if not rec["logits_finite"]:
+        raise AssertionError("serve: non-finite logits")
+    if (rec["flash_launches_prefill"], rec["flash_launches_decode"]) != \
+            (cfg.num_layers, 0):
+        raise AssertionError(f"serve: flash launches {after_prefill} after "
+                             f"prefill, {after_decode} after decode")
+    if tuple(res["tokens"].shape) != (SERVE_BATCH, SERVE_NEW) \
+            or not rec["stepwise_equals_generate"]:
+        raise AssertionError("serve: generate and the stepped session differ")
+    return counts
+
+
+def phase_serve_card_vs_cpu():
+    """The serve path at full width and 2 layers (one window-1024 layer, one
+    global), float32, batch 1, prompt 2048, 4 new tokens, on the card and on
+    the CPU from the same weights: prefill and decode logits within rtol
+    1e-3, atol 5e-4 (cache against recompute's tolerance in
+    tests/test_models_smoke.py), greedy tokens equal."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models.factory import build_model
+    from repro_torch.models.transformer import _layer_flags
+    from repro_torch.sharding.rules import init_from_defs, tree_map
+
+    cfg = get_config(SERVE_ARCH).with_overrides(num_layers=2, global_every=2,
+                                                dtype="float32")
+    on_card, on_cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    params = init_from_defs(torch.Generator(device="cuda").manual_seed(1),
+                            on_card.param_defs)
+    batch = {"tokens": prng.randint(prng.PRNGKey(1), (1, SERVE_PROMPT), 0,
+                                    cfg.vocab_size)}
+    new, cache_len = 4, SERVE_PROMPT + 4
+    t0 = time.perf_counter()
+    card_logits, card_toks = greedy_steps(on_card, params, batch, cache_len, new)
+    card_logits = [x.cpu() for x in card_logits]
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_logits, cpu_toks = greedy_steps(on_cpu, tree_map(lambda t: t.cpu(), params),
+                                        batch, cache_len, new)
+    cpu_s = time.perf_counter() - t0
+    gaps = [float((a - b).abs().max()) for a, b in zip(card_logits, cpu_logits)]
+    close = [bool(torch.allclose(a, b, rtol=1e-3, atol=5e-4))
+             for a, b in zip(card_logits, cpu_logits)]
+    rec = dict(phase="serve_card_vs_cpu", arch=cfg.name, layers=cfg.num_layers,
+               windows=_layer_flags(cfg).tolist(), batch=1,
+               prompt=SERVE_PROMPT, new_tokens=new,
+               dtype=cfg.dtype, rtol=1e-3, atol=5e-4,
+               max_abs_logit_gap=gaps, within_tol=close,
+               tokens_card=card_toks.cpu().tolist(),
+               tokens_cpu=cpu_toks.tolist(), card_s=card_s, cpu_s=cpu_s)
+    emit(**rec)
+    if not all(close) or not torch.equal(card_toks.cpu(), cpu_toks):
+        raise AssertionError(f"serve on the card and the CPU disagree: {rec}")
 
 
 def main() -> int:
@@ -513,14 +769,25 @@ def main() -> int:
     fused_counts = phase_sweep_fused(obj, batched, batched_s)
     emit(phase="run_sweep_fused_done", seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
+    serve_counts = phase_serve(report)
+    emit(phase="serve_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_serve_card_vs_cpu()
+    emit(phase="serve_card_vs_cpu_done", seconds=time.perf_counter() - t0)
+
     replaces = {"svrg_update": "src/repro/kernels/svrg_update/kernel.py:23",
                 "logreg_grad": "src/repro/kernels/logreg_grad/kernel.py:31",
-                "sweep_epoch": "src/repro/kernels/sweep_epoch/kernel.py:92"}
+                "sweep_epoch": "src/repro/kernels/sweep_epoch/kernel.py:92",
+                "flash_attention": "src/repro/kernels/flash_attention/kernel.py:33"}
     # launches: each kernel's count in the run of its path — run_asysvrg for
-    # svrg_update and logreg_grad, the fused run_sweep for sweep_epoch
-    launches = {**counts, "sweep_epoch": fused_counts["sweep_epoch"]}
+    # svrg_update and logreg_grad, the fused run_sweep for sweep_epoch, the
+    # gemma3-4b serve run for flash_attention
+    launches = {**counts, "sweep_epoch": fused_counts["sweep_epoch"],
+                "flash_attention": serve_counts["flash_attention"]}
     kernels = []
-    for name in ("svrg_update", "logreg_grad", "sweep_epoch"):
+    for name in ("svrg_update", "logreg_grad", "sweep_epoch", "flash_attention"):
         rec = report[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -528,7 +795,8 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None})
+            "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms")})
     emit(phase="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,110 @@
-"""Configuration the port's engines read: its own copy of the JAX package's
-`SVRGConfig` (the port imports nothing of that package), without the fields
-of the SPMD variant (`core/distributed.py`), which is not ported yet."""
+"""Configuration the port reads: its own copies of the JAX package's
+`ModelConfig`, `SVRGConfig` and `ServeConfig` (the port imports nothing of
+that package). `SVRGConfig` lacks the fields of the SPMD variant
+(`core/distributed.py`), which is not ported yet; the shape, mesh, train
+and TPU hardware configs are not copied."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description, field for field the JAX package's. Families:
+
+    - ``dense``   decoder-only transformer (GQA, RoPE, optional local/global)
+    - ``moe``     dense + mixture-of-experts FFN (shared + routed experts)
+    - ``encdec``  encoder-decoder (whisper-style; frontend stubbed)
+    - ``vlm``     dense + interleaved cross-attention layers (image stub)
+    - ``hybrid``  RG-LRU recurrent blocks + local attention (recurrentgemma)
+    - ``ssm``     attention-free Mamba1 selective-SSM stack
+    - ``logreg``  the paper's own workload (L2-regularized logistic regression)
+
+    The port's model factory builds ``dense`` only so far.
+    """
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # --- attention options ---
+    rope_theta: float = 10000.0
+    rope_style: str = "neox"          # "neox" | "partial" (chatglm 2d) | "none"
+    rope_fraction: float = 1.0        # fraction of head_dim rotated
+    attn_pattern: str = "global"      # "global" | "local_global" | "local"
+    local_window: int = 4096
+    global_every: int = 6             # gemma3: 1 global per 6 (5 local : 1 global)
+    use_qkv_bias: bool = False
+    use_bias: bool = False
+    norm: str = "rmsnorm"             # "rmsnorm" | "layernorm"
+    activation: str = "silu"          # "silu" | "gelu" | "geglu" | "relu"
+    glu: bool = True                  # gated MLP (SwiGLU-style)
+    tie_embeddings: bool = False
+    logits_softcap: float = 0.0
+    qk_norm: bool = False
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0                 # per-expert hidden size
+    first_dense_layers: int = 0       # deepseek: layer 0 stays dense
+    router_aux_loss: float = 0.001
+
+    # --- encoder-decoder ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0              # whisper: 1500 frames after conv stub
+    encoder_feature_dim: int = 0      # stub input feature dim (mel bins x conv)
+
+    # --- VLM cross-attention ---
+    cross_attn_every: int = 0         # insert cross-attn layer every N layers
+    num_image_tokens: int = 0
+    image_embed_dim: int = 0
+
+    # --- hybrid / SSM ---
+    block_pattern: Tuple[str, ...] = ()   # e.g. ("rec","rec","attn") repeated
+    lru_width: int = 0                    # RG-LRU width (recurrentgemma)
+    ssm_state: int = 0                    # mamba state dim N
+    d_conv: int = 4
+    expand: int = 2                       # mamba d_inner = expand*d_model
+    dt_rank: int = 0                      # mamba dt rank (0 -> ceil(d_model/16))
+
+    # --- logreg (paper workload) ---
+    num_features: int = 0
+    l2_reg: float = 1e-4
+
+    # --- numerics / compilation ---
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: str = "full"               # "none" | "full"
+    scan_layers: bool = True
+
+    def with_overrides(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner width."""
+        return self.expand * self.d_model
+
+    @property
+    def dt_rank_actual(self) -> int:
+        return self.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def q_per_kv(self) -> int:
+        return max(1, self.num_heads // max(1, self.num_kv_heads))
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
 
 
 @dataclass(frozen=True)
@@ -21,3 +122,10 @@ class SVRGConfig:
     tau: int = 0                  # bounded delay; 0 -> sequential SVRG
     inner_steps: int = 0          # M per thread; 0 -> 2n/p (paper §5.1)
     option: int = 2               # w_{t+1}: 1 = last iterate, 2 = average
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_decode_steps: int = 32
+    temperature: float = 0.0
+    kv_cache_dtype: str = "bfloat16"

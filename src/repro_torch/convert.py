@@ -46,6 +46,16 @@ def to_objective(source, device, l2_reg=None) -> LogisticRegression:
                               float(l2), device=device)
 
 
+def to_model_params(params, device) -> dict:
+    """The port's model params on ``device`` from the JAX package's nested
+    param dict (leaves numpy or any array): the same keys, shapes, layout
+    and dtypes."""
+    if isinstance(params, dict):
+        return {key: to_model_params(value, device)
+                for key, value in params.items()}
+    return torch.as_tensor(np.array(params), device=device)
+
+
 def to_key(key, device=None) -> torch.Tensor:
     """A port key ([..., 2] int64) from a raw JAX key (uint32 [..., 2])."""
     return torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64),

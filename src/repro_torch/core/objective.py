@@ -30,14 +30,16 @@ import torch
 from repro_torch.kernels.logreg_grad.ops import logreg_grad
 
 
-def default_device() -> torch.device:
-    """The card: entry points run on CUDA unless the caller names another
-    device. Raises where there is no card, rather than moving to the CPU."""
-    if not torch.cuda.is_available():
+def default_device(device=None) -> torch.device:
+    """``device``, by default the card: entry points run on CUDA unless the
+    caller names another device. Raises where the card is asked for and
+    there is none, rather than moving to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' explicitly to run the port on "
             "the CPU")
-    return torch.device("cuda")
+    return device
 
 
 # Margins and transcendental elementwise ops run in float64 and round once
@@ -257,7 +259,7 @@ class LogisticRegression(Objective):
     """
 
     def __init__(self, X, y, l2_reg: float = 1e-4, device=None):
-        device = default_device() if device is None else torch.device(device)
+        device = default_device(device)
         self.X = torch.as_tensor(X, dtype=torch.float32, device=device)
         self.X = self.X.contiguous()
         self.y = torch.as_tensor(y, dtype=torch.float32, device=device)

@@ -1,0 +1,38 @@
+"""ctypes launcher of ``csrc/flash_attention.cu`` (built by `kernels._build`).
+
+Takes tensors the wrapper (`ops.gqa_flash`) has already checked and
+allocated; passes raw device pointers, element strides and PyTorch's current
+stream, and returns the CUDA error code of the launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels._build import library
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _entry():
+    fn = library("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(q, k, v, out, *, causal: bool, window: int) -> int:
+    """out [B, S, N, h] = attention of q [B, S, N, h] over k, v [B, S, K, h]."""
+    B, S, N, h = q.shape
+    K = k.shape[2]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    return _entry()(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), out.data_ptr(), *strides, B, S, N, K, h,
+                   int(causal), int(window), 1.0 / math.sqrt(h), stream)

@@ -1,0 +1,63 @@
+"""Public flash-attention wrapper in the model layout: device dispatch,
+input checks, launch count.
+
+`gqa_flash` takes q ``[B, S, N, h]`` and k, v ``[B, S, K, h]`` with N a
+multiple of K. For CPU tensors it repeats the kv heads and runs the plain
+version (`ref.attention_ref`), as the JAX package's wrapper does; for CUDA
+tensors it launches ``csrc/flash_attention.cu``, which reads the model
+layout through strides (no repeat, no transpose), and counts the launch in
+``gqa_flash.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+MAX_HEAD_DIM = 256
+
+
+def _check_kernel_inputs(q, k, v) -> None:
+    """Raise on what the CUDA kernel does not take."""
+    h = q.shape[-1]
+    if q.dtype not in kernel.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"gqa_flash: no kernel for dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if h % 8 or not 0 < h <= MAX_HEAD_DIM:
+        raise ValueError(f"gqa_flash: head width {h} is not a multiple of 8 "
+                         f"up to {MAX_HEAD_DIM}")
+    vec = 16 // q.element_size()      # elements per 16-byte load
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"gqa_flash: {name} strides {t.stride()} do not "
+                             "give 16-byte aligned rows of contiguous heads")
+
+
+def gqa_flash(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B,S,N,h], k/v [B,S,K,h] -> [B,S,N,h] in q's dtype."""
+    B, S, N, h = q.shape
+    K = k.shape[2]
+    if k.shape != (B, S, K, h) or v.shape != k.shape or N % K:
+        raise ValueError(f"gqa_flash: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: expected k = v = [B, S, K, h] "
+                         "with K dividing N")
+    if dispatch.route(q, k, v) == dispatch.REFERENCE:
+        G = N // K
+        qt = q.transpose(1, 2)                              # [B,N,S,h]
+        kt = k.transpose(1, 2).repeat_interleave(G, dim=1)
+        vt = v.transpose(1, 2).repeat_interleave(G, dim=1)
+        out = attention_ref(qt, kt, vt, causal=causal, window=window)
+        return out.transpose(1, 2)
+    _check_kernel_inputs(q, k, v)
+    out = torch.empty((B, S, N, h), dtype=q.dtype, device=q.device)
+    rc = kernel.launch(q, k, v, out, causal=causal, window=int(window))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    gqa_flash.launches += 1
+    return out
+
+
+gqa_flash.launches = 0

@@ -1,0 +1,74 @@
+"""Model factory: ``ModelConfig.family`` -> the family module, bundled as
+uniform (prefill, decode_step, param_defs, cache_defs) functions for the
+serve loop; the port of the JAX package's ``models/factory.py`` for the
+dense family. ``loss_fn`` and the input specs wait for the training slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.objective import default_device
+from repro_torch.sharding.rules import tree_map
+
+# families the JAX package builds that the port does not yet, with the
+# ROADMAP item that brings each
+_NOT_PORTED = {
+    "moe": "ROADMAP Queue 1 item 4 (models/moe.py)",
+    "encdec": "ROADMAP Queue 1 item 4 (models/encdec.py)",
+    "vlm": "ROADMAP Queue 1 item 4 (models/vlm.py)",
+    "hybrid": "ROADMAP Queue 1 item 4 (models/rglru.py)",
+    "ssm": "ROADMAP Queue 1 item 4 (models/mamba.py)",
+    "logreg": "ROADMAP Queue 1 item 4 (the factory's logreg bundle; the "
+              "paper's path is repro_torch.core)",
+}
+
+
+@dataclass
+class ModelBundle:
+    cfg: ModelConfig
+    device: torch.device                 # where params and caches live
+    param_defs: Any                      # ParamDef dict
+    cast: Callable                       # master params -> activation-dtype copies
+    prefill_fn: Callable                 # (params, batch, cache_len) -> (logits, cache)
+    decode_fn: Callable                  # (params, cache, tokens, pos) -> (logits, cache)
+    cache_defs: Callable                 # (batch, seq) -> ParamDef dict
+
+
+def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
+    """The bundle of ``cfg`` on ``device`` (default: the card; raises where
+    there is none rather than moving to the CPU)."""
+    fam = cfg.family
+    if fam in _NOT_PORTED:
+        raise NotImplementedError(
+            f"family {fam!r} is not ported yet: {_NOT_PORTED[fam]}")
+    if fam != "dense":
+        raise ValueError(f"unknown family {fam!r}")
+    from repro_torch.models import transformer as mod
+
+    device = default_device(device)
+    act_dtype = getattr(torch, cfg.dtype)
+
+    def cast(params: Dict) -> Dict:
+        """f32 master params -> activation-dtype compute copies. A leaf
+        already in that dtype is returned as it is, so casting cast params
+        costs nothing: the serve session casts once, and the functions
+        below, which cast as the JAX package's do, then reuse its copies."""
+        return tree_map(lambda x: x.to(act_dtype) if x.is_floating_point()
+                        else x, params)
+
+    def prefill_fn(params, batch, cache_len):
+        return mod.prefill(cfg, cast(params), batch["tokens"], cache_len)
+
+    def decode_fn(params, cache, tokens, pos):
+        return mod.decode_step(cfg, cast(params), cache, tokens, pos)
+
+    def cache_defs(batch, seq):
+        return mod.cache_defs(cfg, batch, seq)
+
+    return ModelBundle(cfg=cfg, device=device, param_defs=mod.param_defs(cfg),
+                       cast=cast, prefill_fn=prefill_fn, decode_fn=decode_fn,
+                       cache_defs=cache_defs)

@@ -1,0 +1,185 @@
+"""Shared layers of the dense transformer (plain functions on tensors over
+explicit param dicts), the port of the JAX package's ``models/layers.py``.
+
+The attention here is the plain GQA path, q heads grouped over kv heads,
+with masks computed from position vectors; for ``Q > chunk_q`` the query
+dimension is taken in chunks so the score block is ``[B, K, G, chunk, S]``.
+The serve path's prefill goes through the flash-attention kernel instead
+(`models.transformer.block_apply`); decode attends here.
+
+The JAX package's sharding constraints are identities on one card and are
+dropped. ``lm_loss`` waits for the training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, x, p: Dict):
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_table(positions, dim: int, theta: float):
+    """positions [..., S] -> (sin, cos) [..., S, dim/2], float32."""
+    half = dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32,
+                            device=positions.device) / half
+    # theta stays a Python scalar: rounded to float32 inside the kernel as
+    # JAX rounds it, and no host-to-device copy (which would synchronise)
+    freqs = 1.0 / torch.pow(theta, exponent)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x, positions, cfg: ModelConfig):
+    """x [B, S, N, H]; neox-style rotate-half on the first
+    rope_fraction*head_dim dims (chatglm '2d rope' = fraction 0.5)."""
+    if cfg.rope_style == "none":
+        return x
+    hd = x.shape[-1]
+    rot = int(hd * cfg.rope_fraction)
+    rot -= rot % 2
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    sin, cos = rope_table(positions, rot, cfg.rope_theta)   # [B, S, rot/2]
+    sin = sin[:, :, None, :]
+    cos = cos[:, :, None, :]
+    x1, x2 = x_rot.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _mask_bias(pos_q, pos_k, causal: bool, window: int, dtype):
+    """Additive mask [B, 1, 1, Q, S] from position vectors [B,Q], [B,S]
+    (window 0 means global; a negative key position is padding)."""
+    ok = (pos_k >= 0)[:, None, :]
+    dist = pos_q[:, :, None] - pos_k[:, None, :]
+    if causal:
+        ok = ok & (dist >= 0)
+    if window > 0:
+        ok = ok & (dist < window)
+    bias = torch.where(ok, 0.0, NEG_INF).to(dtype)
+    return bias[:, None, None, :, :]
+
+
+def _attend_block(q, k, v, bias, softcap: float = 0.0):
+    """q [B,Q,K,G,h], k/v [B,S,K,h], bias [B,1,1,Q,S] -> [B,Q,K,G,h]."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * scale
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = scores.to(torch.float32) + bias.to(torch.float32)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+def attention(q, k, v, pos_q, pos_k, *, causal: bool = True,
+              window: int = 0, chunk_q: int = 2048, softcap: float = 0.0):
+    """GQA attention. q [B,Q,N,h] with N = K*G heads; k/v [B,S,K,h].
+
+    For Q > chunk_q the query dim is taken in blocks so the peak score
+    buffer is [B,K,G,chunk,S] (the JAX package unrolls up to 4 chunks and
+    scans beyond; here both are one loop).
+    """
+    B, Q, N, h = q.shape
+    K = k.shape[2]
+    G = N // K
+    qg = q.reshape(B, Q, K, G, h)
+    if Q <= chunk_q:
+        bias = _mask_bias(pos_q, pos_k, causal, window, torch.float32)
+        return _attend_block(qg, k, v, bias, softcap).reshape(B, Q, N, h)
+    if Q % chunk_q:
+        raise ValueError(f"attention: {Q} queries are not a multiple of "
+                         f"chunk_q {chunk_q}")
+    outs = []
+    for i in range(0, Q, chunk_q):
+        bias = _mask_bias(pos_q[:, i:i + chunk_q], pos_k, causal, window,
+                          torch.float32)
+        outs.append(_attend_block(qg[:, i:i + chunk_q], k, v, bias, softcap))
+    return torch.cat(outs, dim=1).reshape(B, Q, N, h)
+
+
+def gqa_project(x, p: Dict, cfg: ModelConfig, use_bias: bool):
+    """x [B,S,d] -> q [B,S,N,h], k/v [B,S,K,h], each contiguous."""
+    B, S, D = x.shape
+    xf = x.reshape(B * S, D)
+    q, k, v = (xf.matmul(p[w].reshape(D, -1)).view(B, S, *p[w].shape[1:])
+               for w in ("wq", "wk", "wv"))
+    if use_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q, k, v
+
+
+def attn_output(out, p: Dict, use_bias: bool):
+    B, S, N, h = out.shape
+    y = out.reshape(B * S, N * h).matmul(p["wo"].reshape(N * h, -1))
+    y = y.view(B, S, -1)
+    if use_bias:
+        y = y + p["bo"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def _act(name: str, x):
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default
+    if name == "relu":
+        return F.relu(x)
+    raise ValueError(name)
+
+
+def mlp(x, p: Dict, cfg: ModelConfig):
+    if cfg.glu:
+        h = _act(cfg.activation, x.matmul(p["w_gate"])) * x.matmul(p["w_up"])
+    else:
+        h = x.matmul(p["w_up"])
+        if cfg.use_bias:
+            h = h + p["b_up"]
+        h = _act(cfg.activation, h)
+    y = h.matmul(p["w_down"])
+    if cfg.use_bias:
+        y = y + p["b_down"]
+    return y

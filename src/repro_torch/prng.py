@@ -92,12 +92,20 @@ def random_bits(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the top 23
-    bits become the mantissa of a float in [1, 2), minus 1."""
+def uniform(key: torch.Tensor, shape: Tuple[int, ...], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` in float32 on
+    [minval, maxval): the top 23 bits become the mantissa of a float in
+    [1, 2), minus 1, then ``max(minval, f * (maxval - minval) + minval)``
+    with both bounds rounded to float32."""
     bits = random_bits(key, shape)
     mant = (bits >> 9) | 0x3F800000
-    return mant.to(torch.int32).view(torch.float32) - 1.0
+    floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return floats                   # the affine map is exact here
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Tuple[int, ...]) -> torch.Tensor:
@@ -122,3 +130,17 @@ def randint(key: torch.Tensor, shape: Tuple[int, ...], minval: int,
     offset = ((higher % span) * multiplier) & MASK32
     offset = ((offset + lower % span) & MASK32) % span
     return offset + minval
+
+
+def gumbel(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32, its default ("low")
+    mode: ``-log(-log(u))`` with u uniform on [tiny, 1)."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, minval=tiny)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis of float32
+    logits: the argmax of Gumbel noise plus the logits (int64)."""
+    noise = gumbel(key, tuple(logits.shape))
+    return torch.argmax(noise + logits, dim=-1)

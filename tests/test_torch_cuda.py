@@ -15,6 +15,8 @@ from repro_torch.config import SVRGConfig
 from repro_torch.core.asysvrg import run_asysvrg
 from repro_torch.core.objective import LogisticRegression
 from repro_torch.core.sweep import SweepSpec, run_sweep
+from repro_torch.kernels.flash_attention.ops import gqa_flash
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.logreg_grad.ops import logreg_grad
 from repro_torch.kernels.logreg_grad.ref import logreg_grad_ref
 from repro_torch.kernels.svrg_update.ops import svrg_update
@@ -167,3 +169,95 @@ def test_fused_row_alone_equals_row_in_group(gen):
         alone = run_sweep(obj, 2, [spec])
         assert np.array_equal(alone.final_w[0], group.final_w[c])
         assert np.array_equal(alone.histories[0], group.histories[c])
+
+
+def _flash_plain(q, k, v, causal, window):
+    """The plain version on the same CUDA tensors, after the kv repeat."""
+    G = q.shape[2] // k.shape[2]
+    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1) for t in (k, v))
+    return attention_ref(q.transpose(1, 2), kt, vt, causal=causal,
+                         window=window).transpose(1, 2)
+
+
+@pytest.mark.parametrize("h", [32, 128, 160, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("S,causal,window", [
+    (128, True, 0), (256, True, 8), (256, True, 32), (200, True, 32),
+    (77, True, 0), (128, False, 0), (160, False, 24)])
+def test_flash_attention_kernel_matches_plain(gen, h, dtype, tol, S, causal,
+                                              window):
+    """float32 2e-5 (summation order); bfloat16 3e-2: the plain version
+    rounds scores and probabilities to bfloat16, the kernel keeps float32.
+    Windows 8 and 32 lie inside the kernel's 64-row query tiles, so rows
+    fully masked within a processed kv tile occur; S 200 and 77 are
+    ragged."""
+    B, N, K = 2, 4, 2
+    q = torch.randn((B, S, N, h), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, S, K, h), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    before = gqa_flash.launches
+    out = gqa_flash(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert gqa_flash.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(),
+                               _flash_plain(q, k, v, causal, window).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("N,K", [(4, 4), (8, 1), (16, 1), (6, 3)])
+def test_flash_attention_kernel_gqa_and_strides(gen, N, K):
+    """Query head n reads kv head n // (N / K); q, k and v may be views
+    into one fused projection (strided heads)."""
+    B, S, h = 2, 192, 64
+    qkv = torch.randn((B, S, N + 2 * K, h), generator=gen, device="cuda")
+    q, k, v = qkv[:, :, :N], qkv[:, :, N:N + K], qkv[:, :, N + K:]
+    out = gqa_flash(q, k, v, window=50)
+    torch.testing.assert_close(out, _flash_plain(q, k, v, True, 50),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    x = torch.randn((1, 64, 2, 16), generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        gqa_flash(x.double(), x.double(), x.double())
+    with pytest.raises(TypeError):
+        gqa_flash(x, x.to(torch.bfloat16), x)
+    y = torch.randn((1, 64, 2, 12), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gqa_flash(y, y, y)
+    t = torch.randn((1, 64, 16, 2), generator=gen, device="cuda").transpose(2, 3)
+    with pytest.raises(ValueError, match="strides"):
+        gqa_flash(t, t, t)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "command-r-plus-104b",
+                                  "gemma3-4b", "stablelm-12b"])
+def test_serve_on_the_card_matches_cpu(gen, arch):
+    """The reduced model's prefill logits within rtol 1e-3, atol 5e-4 of
+    the CPU path (cache against recompute's tolerance in
+    tests/test_models_smoke.py) and the same greedy tokens; every prefill
+    layer launches the flash-attention kernel, decode none."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve.loop import ServeSession, generate
+    from repro_torch.sharding.rules import init_from_defs, tree_map
+
+    cfg = reduced_config(arch)
+    on_card, on_cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    params = init_from_defs(torch.Generator().manual_seed(0),
+                            on_cpu.param_defs)
+    card_params = tree_map(lambda t: t.cuda(), params)
+    batch = {"tokens": prng.randint(prng.PRNGKey(0), (2, 40), 0,
+                                    cfg.vocab_size)}
+    logits = {}
+    for name, bundle, p in (("card", on_card, card_params),
+                            ("cpu", on_cpu, params)):
+        logits[name] = ServeSession(bundle, p, 48).prefill(batch).cpu()
+    torch.testing.assert_close(logits["card"], logits["cpu"], rtol=1e-3,
+                               atol=5e-4)
+    before = gqa_flash.launches
+    out = generate(on_card, card_params, batch, 6, 48)
+    assert gqa_flash.launches == before + cfg.num_layers
+    assert torch.equal(out.cpu(), generate(on_cpu, params, batch, 6, 48))

@@ -1,0 +1,102 @@
+"""The port's flash attention (K4) on the CPU: its plain version against the
+JAX package's Pallas kernel (interpret mode) and its jnp oracle, over the
+parametrisation of tests/test_kernels.py, and the wrapper's GQA layout.
+
+Tolerances are those of tests/test_kernels.py: float32 atol/rtol 2e-5 (the
+kernel's online softmax sums in another order than the oracle's softmax),
+bfloat16 3e-2 (both round scores and probabilities to bfloat16, in
+different places). The CUDA kernel itself runs only on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jax_ops
+from repro.kernels.flash_attention.kernel import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro_torch.kernels.flash_attention.ops import gqa_flash
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+
+
+def _normal(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("S,bq,bk", [(128, 64, 64), (256, 64, 128),
+                                     (256, 128, 64)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (True, 8),
+                                           (False, 0)])
+def test_plain_matches_jax_kernel_and_oracle(S, bq, bk, causal, window):
+    BH, d = 4, 32
+    q, k, v = (_normal((BH, S, d), S + bq + window + i) for i in range(3))
+    got = attention_ref(*(torch.tensor(a)[None] for a in (q, k, v)),
+                        causal=causal, window=window)[0].numpy()
+    j = [jnp.asarray(a) for a in (q, k, v)]
+    kern = jax_flash(*j, causal=causal, window=window, bq=bq, bk=bk,
+                     interpret=True)
+    oracle = jax_ref(*(a[None] for a in j), causal=causal, window=window)[0]
+    for want in (kern, oracle):
+        np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("N,K", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("window", [0, 32])
+def test_gqa_flash_matches_jax_wrapper(N, K, window):
+    B, S, h = 2, 128, 16
+    q = _normal((B, S, N, h), N * 17 + K)
+    k = _normal((B, S, K, h), N * 17 + K + 1)
+    v = _normal((B, S, K, h), N * 17 + K + 2)
+    got = gqa_flash(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                    causal=True, window=window)
+    assert got.shape == (B, S, N, h)
+    j = [jnp.asarray(a) for a in (q, k, v)]
+    for want in (jax_ops.gqa_flash(*j, causal=True, window=window,
+                                   interpret=True, force_kernel=True,
+                                   bq=64, bk=64),
+                 jax_ops.gqa_flash(*j, causal=True, window=window)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_dtypes_match_jax_kernel(dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    x = _normal((2, 128, 32), 9)
+    got = attention_ref(*(torch.tensor(x).to(tdt)[None],) * 3, causal=True)[0]
+    assert got.dtype == tdt
+    xj = jnp.asarray(x).astype(jdt)
+    want = jax_flash(xj, xj, xj, causal=True, bq=64, bk=64, interpret=True)
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+def test_ragged_length_matches_oracle():
+    """The port takes any S (the TPU kernel asserts S % bq == 0)."""
+    B, S, N, K, h = 1, 77, 4, 2, 24
+    q, k, v = (_normal((B, S, n, h), 5 + n) for n in (N, K, K))
+    got = gqa_flash(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                    window=8)
+    want = jax_ops.gqa_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             window=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_cpu_tensors_never_touch_the_launch_counter():
+    before = gqa_flash.launches
+    x = torch.tensor(_normal((1, 64, 2, 8), 3))
+    gqa_flash(x, x, x)
+    gqa_flash(x.to(torch.bfloat16), *(x.to(torch.bfloat16),) * 2, window=4)
+    assert gqa_flash.launches == before
+
+
+def test_wrapper_rejects_mismatched_heads():
+    q = torch.zeros((1, 8, 6, 8))
+    kv = torch.zeros((1, 8, 4, 8))
+    with pytest.raises(ValueError, match="K dividing N"):
+        gqa_flash(q, kv, kv)

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the port's AsySVRG inner loop spends its time on the card.
+"""Where the port's AsySVRG inner loop and its serve path spend their time
+on the card.
 
-    python3 tools/profile_port.py
+    python3 tools/profile_port.py          # everything below
+    python3 tools/profile_port.py serve    # the serve path only
 
 At the rcv1 width (n = 20242, p = 2048; data from
 `repro_torch.data.libsvm.make_synthetic_libsvm("rcv1")`):
@@ -21,7 +23,9 @@ At the rcv1 width (n = 20242, p = 2048; data from
     (1 to 528 rows), at the news20 width (d = 4096) and with the ring in
     device memory (τ = 40). Each launch ends with the rows' loss, two more
     kernels over all SMs that read X once for all rows; a launch of one
-    update times that loss pass.
+    update times that loss pass;
+  * the serve path at gemma3-4b's full width (batch 4, prompt 2048, bf16):
+    one prefill and 4 decode steps, each without and under the profiler.
 
 Prints one JSON line per configuration, and the card's name and power limit
 first. Needs a CUDA device; fails without one.
@@ -208,7 +212,68 @@ def profile_sweep_epoch(ds, news20, steps: int = 4096):
               flush=True)
 
 
-def main() -> int:
+def _summary(events, wall: float, steps: int) -> dict:
+    """Device-busy share, top device kernels and top host ops of a profiled
+    window of ``wall`` seconds holding ``steps`` steps."""
+    from torch.autograd import DeviceType
+
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=_device_time_us, reverse=True)
+    busy_us = sum(_device_time_us(e) for e in kernels)
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    return {
+        "device_busy_share": busy_us * 1e-6 / wall,
+        "device_ms_per_step": busy_us * 1e-3 / steps,
+        "device_kernels": [
+            {"name": e.key[:80], "count": e.count,
+             "ms_per_step": _device_time_us(e) * 1e-3 / steps}
+            for e in kernels[:12]],
+        "host_ops": [
+            {"name": e.key[:60], "count": e.count,
+             "self_ms_per_step": e.self_cpu_time_total * 1e-3 / steps}
+            for e in host[:15]],
+    }
+
+
+def profile_serve(decode_steps: int = 4) -> None:
+    """gemma3-4b at full width (chip_smoke.py's serve phase: batch 4, prompt
+    2048, bf16): one prefill, then ``decode_steps`` decode steps, each
+    window timed without and under the profiler."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models.factory import build_model
+    from repro_torch.serve.loop import ServeSession
+    from repro_torch.sharding.rules import init_from_defs
+
+    cfg = get_config("gemma3-4b")
+    bundle = build_model(cfg, "cuda")
+    params = init_from_defs(torch.Generator(device="cuda").manual_seed(0),
+                            bundle.param_defs)
+    batch = {"tokens": prng.randint(prng.PRNGKey(0, "cuda"), (4, 2048), 0,
+                                    cfg.vocab_size)}
+    sess = ServeSession(bundle, params, 2048 + 4 * decode_steps)
+    wall, prof_wall, events = _profiled(lambda: sess.prefill(batch))
+    print(json.dumps({"serve": "prefill", "arch": cfg.name, "batch": 4,
+                      "prompt": 2048, "wall_s": wall,
+                      "profiled_wall_s": prof_wall,
+                      **_summary(events, prof_wall, 1)}), flush=True)
+    tok = torch.zeros(4, dtype=torch.int64, device="cuda")
+
+    def decode():
+        for _ in range(decode_steps):
+            sess.decode(tok)
+
+    wall, prof_wall, events = _profiled(decode)
+    print(json.dumps({"serve": "decode", "arch": cfg.name, "batch": 4,
+                      "cache_len": sess.cache_len, "steps": decode_steps,
+                      "wall_ms_per_step": 1e3 * wall / decode_steps,
+                      "profiled_wall_ms_per_step": 1e3 * prof_wall / decode_steps,
+                      **_summary(events, prof_wall, decode_steps)}), flush=True)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
@@ -218,12 +283,16 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    if argv == ["serve"]:
+        profile_serve()
+        return 0
     ds = make_synthetic_libsvm("rcv1", scale=1.0)
     obj = LogisticRegression(ds.X, ds.y, ds.l2_reg)
     for rows in (1, 4):
         print(json.dumps(profile(obj, rows, STEPS)), flush=True)
     print(json.dumps(profile_fused(obj)), flush=True)
     profile_sweep_epoch(ds, make_synthetic_libsvm("news20", scale=1.0))
+    profile_serve()
     return 0
 
 
