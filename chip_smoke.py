@@ -9,8 +9,10 @@ version on the card at the main path's shapes: `svrg_update`, `logreg_grad`
 and `sweep_epoch` (rcv1 and news20 widths, the ring in shared and in device
 memory; its in-kernel generator bit for bit against `repro_torch.prng`), and
 `flash_attention` at gemma3-4b's prefill shapes (windows 0 and 1024, bf16
-and float32, a ragged length, GQA 16:1), timed beside its plain version and
-`scaled_dot_product_attention`. It then drives each path through the entry
+on the tensor-core kernel and float32 on the CUDA-core one, a ragged
+length, GQA 16:1), timed beside its plain version, the CUDA-core kernel on
+the same bf16 inputs and `scaled_dot_product_attention`; the tensor-core
+library's SASS must hold `HGMMA` and `UTMALDG`. It then drives each path through the entry
 points a user calls, with the launch counters set to 0 just before and read
 just after; the paper's paths at the full width of the rcv1 configuration
 (n = 20242, p = 2048):
@@ -27,9 +29,14 @@ and the serve path at the full width of gemma3-4b (34 layers, d_model 2560,
 vocab 262144; random weights from a seed, bf16 activations):
 
   * `launch.serve.run` (`build_model` -> `generate`): batch 4, prompt 2048,
-    16 new tokens; one `flash_attention` launch per prefill layer, none in
-    decode; prefill seconds, decode ms per token and tokens/s;
-  * the same path at 2 layers (one window, one global) in float32, batch 1,
+    16 new tokens; one `flash_attention` launch per prefill layer, all on
+    the tensor-core route, none in decode; prefill seconds, decode ms per
+    token and tokens/s;
+  * the same path at 2 layers (one window, one global) in bf16, batch 1:
+    the prefill logits with attention through the tensor-core kernel
+    against the same prefill with the plain attention (and both against
+    attention computed in float32 from the same bf16 q, k, v);
+  * the same path at 2 layers in float32 (the CUDA-core route), batch 1,
     on the card and on the CPU from the same weights: prefill and decode
     logits and greedy tokens.
 
@@ -57,8 +64,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 outside the
-# tensor cores, the unit both kernels run on.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the
+# tensor cores, bf16 on them.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12   # dense bf16 on the tensor cores
@@ -115,9 +122,19 @@ def phase_device():
         text = log.read_text() if log.exists() else ""
         ptxas[name] = [ln.strip() for ln in text.splitlines()
                        if "registers" in ln or "spill" in ln]
+    # the tensor-core attention kernel's SASS: wgmma and TMA loads
+    lib = _build.target("flash_attention_wgmma")[1]
+    sass = subprocess.run(
+        [str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
     emit(phase="device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas)
+         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
+         flash_attention_wgmma_sass=counts)
+    if not all(counts.values()):
+        raise AssertionError(f"flash_attention_wgmma SASS lacks wgmma or TMA: "
+                             f"{counts}")
 
 
 def phase_kernels(ds):
@@ -314,15 +331,17 @@ def attention_pairs(S: int, window: int) -> int:
 def flash_attention_vs_plain(gen):
     """flash_attention against its plain version on the same CUDA tensors:
     at the serve path's shapes (B 4, S 2048, N 8, K 4, h 256; windows 1024
-    and 0) in bf16 (atol/rtol 3e-2: the plain version rounds scores and
-    probabilities to bf16, the kernel keeps them in float32) and float32
-    (2e-5, summation order), a ragged S = 2000 and GQA 16:1 at h = 128. The
-    bf16 main cases are timed beside the plain version and
-    `scaled_dot_product_attention` (the yardstick; the port never calls
-    it). Returns the kernel's record, per launch averaged over one
-    prefill's 34 layers."""
+    and 0) in bf16 on the tensor-core route (atol/rtol 3e-2: the plain
+    version rounds the scores to bf16, the kernel keeps them in float32)
+    and float32 on the CUDA-core route (2e-5, summation order), a ragged
+    S = 2000 and GQA 16:1 at h = 128. The bf16 main cases are timed beside
+    the plain version, the CUDA-core kernel on the same bf16 inputs (the
+    kernel before the tensor-core one) and `scaled_dot_product_attention`
+    (the yardstick; the port never calls it). Returns the kernel's record,
+    per launch averaged over one prefill's 34 layers."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -346,9 +365,12 @@ def flash_attention_vs_plain(gen):
         q = torch.randn((B, S, N, h), generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn((B, S, K, h), generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
+        before = dict(gqa_flash.launches_by_route)
         out = gqa_flash(q, k, v, window=window)
         ref = plain(q, k, v, window)
         torch.cuda.synchronize()
+        (route,) = [r for r, n in gqa_flash.launches_by_route.items()
+                    if n != before[r]]
         diff = (out.float() - ref.float()).abs()
         ok = bool((diff <= tol + tol * ref.float().abs()).all())
         size = q.element_size()
@@ -358,6 +380,7 @@ def flash_attention_vs_plain(gen):
                            BF16_FLOP_PER_S if dtype == bf16 else FP32_FLOP_PER_S)
         rec = dict(kernel="flash_attention", case=name, B=B, S=S, N=N, K=K,
                    h=h, window=window, dtype=str(dtype).replace("torch.", ""),
+                   kernel_route=route,
                    atol=tol, rtol=tol, max_abs_err=float(diff.max()),
                    within_tol=ok, finite=bool(torch.isfinite(out).all()),
                    pairs=pairs, bound_ms=bnd, bound_by=by)
@@ -374,27 +397,45 @@ def flash_attention_vs_plain(gen):
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)
 
+            simt_out = torch.empty_like(q)
+
+            def simt():
+                rc = kernel.launch(q, k, v, simt_out, causal=True,
+                                   window=window, route="simt")
+                if rc != 0:
+                    raise RuntimeError(f"simt flash_attention: CUDA error {rc}")
+
+            ms = median_ms(lambda: gqa_flash(q, k, v, window=window),
+                           reps=11, inner=10)
             rec.update(
-                ms=median_ms(lambda: gqa_flash(q, k, v, window=window),
-                             reps=5, inner=5),
+                ms=ms, tflop_per_s=4 * h * pairs / ms / 1e9,
+                share_of_bound=bnd / ms,
                 plain_ms=median_ms(lambda: plain(q, k, v, window), reps=5,
                                    inner=5),
-                library_ms=median_ms(library, reps=5, inner=5),
+                simt_ms=median_ms(simt, reps=3, inner=3),
+                simt_max_abs_err=float((simt_out.float() - ref.float())
+                                       .abs().max()),
+                library_ms=median_ms(library, reps=11, inner=10),
                 library_max_abs_err=float((library().transpose(1, 2).float()
                                            - ref.float()).abs().max()))
+            rec["ms_over_library_ms"] = ms / rec["library_ms"]
             timed[window] = rec
         emit(phase="kernels_vs_plain", **rec)
-        if not (ok and rec["finite"]):
+        want = "wgmma" if dtype == bf16 else "simt"
+        if not (ok and rec["finite"] and route == want):
             raise AssertionError(f"flash_attention disagrees: {rec}")
     layers = sum(LAYER_MIX.values())
     mix = {key: sum(n * timed[w][key] for w, n in LAYER_MIX.items()) / layers
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for key in ("ms", "plain_ms", "simt_ms", "library_ms", "bound_ms")}
     (bound_by,) = {t["bound_by"] for t in timed.values()}
     rec = dict(kernel="flash_attention", case="serve_prefill_mix",
+               kernel_route="wgmma",
                per="launch, averaged over one prefill's layers",
                layers=LAYER_MIX, **mix, bound_by=bound_by,
                max_abs_err=max(t["max_abs_err"] for t in timed.values()),
                per_prefill_ms=mix["ms"] * layers,
+               per_prefill_simt_ms=mix["simt_ms"] * layers,
+               per_prefill_library_ms=mix["library_ms"] * layers,
                per_prefill_bound_ms=mix["bound_ms"] * layers)
     emit(phase="kernels_vs_plain", **rec)
     return rec
@@ -410,6 +451,7 @@ def reset_counts():
     sweep_epoch.launches = 0
     sweep_epoch.placements = dict.fromkeys(sweep_epoch.placements, 0)
     gqa_flash.launches = 0
+    gqa_flash.launches_by_route = dict.fromkeys(gqa_flash.launches_by_route, 0)
 
 
 def read_counts():
@@ -617,8 +659,10 @@ def phase_serve(report):
     """The serve path at gemma3-4b's full width through `launch.serve.run`
     (the CLI's function: build_model, init_from_defs, prompts from
     prng.randint, generate): one flash_attention launch per prefill layer,
-    none in decode. Then the same session stepped by hand, synchronised
-    after the prefill and after the decodes, for the split of the time."""
+    each on the tensor-core route, none in decode. Then the same session
+    stepped by hand, synchronised after the prefill and after the decodes,
+    for the split of the time."""
+    from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.launch.serve import run
     from repro_torch.models.transformer import _layer_flags
     from repro_torch.serve.loop import ServeSession
@@ -629,12 +673,15 @@ def phase_serve(report):
     res = run(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
               new_tokens=SERVE_NEW, device="cuda")
     counts = read_counts()
+    routes = dict(gqa_flash.launches_by_route)
     cfg, bundle, params = res["cfg"], res["bundle"], res["params"]
     windows = _layer_flags(cfg).tolist()
     want = {"svrg_update": 0, "logreg_grad": 0, "sweep_epoch": 0,
             "flash_attention": cfg.num_layers}
     if counts != want or {w: windows.count(w) for w in set(windows)} != LAYER_MIX:
         raise AssertionError(f"serve launch counts {counts} != {want}")
+    if routes != {"wgmma": cfg.num_layers, "simt": 0}:
+        raise AssertionError(f"serve flash_attention routes {routes}")
 
     cache_len = SERVE_PROMPT + SERVE_NEW
     batch = {"tokens": res["prompts"]}
@@ -646,6 +693,7 @@ def phase_serve(report):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     after_prefill = read_counts()
+    prefill_routes = dict(gqa_flash.launches_by_route)
     finite = torch.isfinite(logits).all()
     toks = [torch.argmax(logits, dim=-1)]
     t0 = time.perf_counter()
@@ -657,13 +705,30 @@ def phase_serve(report):
     decode_s = time.perf_counter() - t0
     after_decode = read_counts()
     stepwise = torch.stack(toks, dim=1).cpu()
+    # the prefill again, warm: host clock and CUDA events of each (a single
+    # host-clock reading varies between calls with the host's load)
+    repeats = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        sess.prefill(batch)
+        stop.record()
+        torch.cuda.synchronize()
+        repeats.append((time.perf_counter() - t0,
+                        start.elapsed_time(stop) / 1e3))
     k4 = report["flash_attention"]["per_prefill_ms"]
     rec = dict(phase="serve", arch=cfg.name, layers=cfg.num_layers,
                d_model=cfg.d_model, vocab=cfg.vocab_size, batch=SERVE_BATCH,
                prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, cache_len=cache_len,
-               dtype=cfg.dtype, launches=counts,
+               dtype=cfg.dtype, launches=counts, flash_routes=routes,
+               flash_routes_prefill=prefill_routes,
                generate_s=res["seconds"], tokens_per_s=res["tokens_per_s"],
                prefill_s=prefill_s,
+               prefill_repeat_s=[w for w, _ in repeats],
+               prefill_repeat_event_s=[e for _, e in repeats],
                decode_ms_per_token=1e3 * decode_s / (SERVE_NEW - 1),
                flash_launches_prefill=after_prefill["flash_attention"],
                flash_launches_decode=(after_decode["flash_attention"]
@@ -678,13 +743,86 @@ def phase_serve(report):
     if not rec["logits_finite"]:
         raise AssertionError("serve: non-finite logits")
     if (rec["flash_launches_prefill"], rec["flash_launches_decode"]) != \
-            (cfg.num_layers, 0):
+            (cfg.num_layers, 0) or prefill_routes != routes:
         raise AssertionError(f"serve: flash launches {after_prefill} after "
                              f"prefill, {after_decode} after decode")
     if tuple(res["tokens"].shape) != (SERVE_BATCH, SERVE_NEW) \
             or not rec["stepwise_equals_generate"]:
         raise AssertionError("serve: generate and the stepped session differ")
     return counts
+
+
+def phase_serve_bf16_vs_plain():
+    """gemma3-4b at full width and 2 layers (one window-1024 layer, one
+    global) in bf16, batch 1, prompt 2048: the prefill logits with attention
+    through the tensor-core kernel against the same prefill, same weights,
+    with the plain attention (`ref.attention_ref`) on the card. Limit: the
+    relative gap ||a - b|| / ||b|| <= 2e-2. The two attentions differ by
+    bf16 roundings (the plain version rounds its scores to bf16, the kernel
+    does not; max |dO| ~ 1.6e-2 at |O| ~ 2-4 in the kernel check), about
+    four bf16 ulps after two layers. A third prefill, with the attention
+    in float32 (output rounded to bf16), shows which of the two it is
+    nearer."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import gqa_flash
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import transformer
+    from repro_torch.models.factory import build_model
+    from repro_torch.models.transformer import _layer_flags
+    from repro_torch.serve.loop import ServeSession
+    from repro_torch.sharding.rules import init_from_defs
+
+    def plain_gqa(q, k, v, *, causal=True, window=0):
+        G = q.shape[2] // k.shape[2]
+        kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1)
+                  for t in (k, v))
+        return attention_ref(q.transpose(1, 2), kt, vt, causal=causal,
+                             window=window).transpose(1, 2)
+
+    def f32_gqa(q, k, v, *, causal=True, window=0):
+        return plain_gqa(q.float(), k.float(), v.float(), causal=causal,
+                         window=window).to(q.dtype)
+
+    def prefill_with(attention):
+        transformer.gqa_flash = attention  # this one prefill only
+        try:
+            return ServeSession(bundle, params, SERVE_PROMPT).prefill(
+                batch).float()
+        finally:
+            transformer.gqa_flash = gqa_flash
+
+    def rel_gap(a, b):
+        return float((a - b).norm() / b.norm())
+
+    cfg = get_config(SERVE_ARCH).with_overrides(num_layers=2, global_every=2)
+    bundle = build_model(cfg, "cuda")
+    params = init_from_defs(torch.Generator(device="cuda").manual_seed(2),
+                            bundle.param_defs)
+    batch = {"tokens": prng.randint(prng.PRNGKey(2), (1, SERVE_PROMPT), 0,
+                                    cfg.vocab_size)}
+    before = dict(gqa_flash.launches_by_route)
+    kern = ServeSession(bundle, params, SERVE_PROMPT).prefill(batch).float()
+    torch.cuda.synchronize()
+    routes = {r: n - before[r] for r, n in gqa_flash.launches_by_route.items()}
+    ref = prefill_with(plain_gqa)
+    f32 = prefill_with(f32_gqa)
+    torch.cuda.synchronize()
+    rel = rel_gap(kern, ref)
+    rec = dict(phase="serve_bf16_vs_plain", arch=cfg.name,
+               layers=cfg.num_layers, windows=_layer_flags(cfg).tolist(),
+               batch=1, prompt=SERVE_PROMPT, dtype=cfg.dtype, routes=routes,
+               rel_tol=2e-2, rel_logit_gap=rel,
+               rel_gap_kernel_vs_f32_attention=rel_gap(kern, f32),
+               rel_gap_plain_vs_f32_attention=rel_gap(ref, f32),
+               max_abs_logit_gap=float((kern - ref).abs().max()),
+               max_abs_logit=float(ref.abs().max()),
+               argmax_equal=bool(torch.equal(kern.argmax(-1), ref.argmax(-1))),
+               finite=bool(torch.isfinite(kern).all()))
+    emit(**rec)
+    if not (rel <= 2e-2 and rec["finite"]
+            and routes == {"wgmma": cfg.num_layers, "simt": 0}):
+        raise AssertionError(f"bf16 prefill, kernel against plain: {rec}")
 
 
 def phase_serve_card_vs_cpu():
@@ -774,6 +912,10 @@ def main() -> int:
     emit(phase="serve_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    phase_serve_bf16_vs_plain()
+    emit(phase="serve_bf16_vs_plain_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     phase_serve_card_vs_cpu()
     emit(phase="serve_card_vs_cpu_done", seconds=time.perf_counter() - t0)
 
@@ -786,17 +928,22 @@ def main() -> int:
     # gemma3-4b serve run for flash_attention
     launches = {**counts, "sweep_epoch": fused_counts["sweep_epoch"],
                 "flash_attention": serve_counts["flash_attention"]}
+    # flash_attention: the tensor-core kernel, the route of every launch on
+    # the serve path (the CUDA-core one keeps float32)
+    sources = {"flash_attention": "flash_attention_wgmma"}
     kernels = []
     for name in ("svrg_update", "logreg_grad", "sweep_epoch", "flash_attention"):
         rec = report[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": f"src/repro_torch/csrc/{sources.get(name, name)}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms")})
+        if "kernel_route" in rec:
+            kernels[-1]["kernel_route"] = rec["kernel_route"]
     emit(phase="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

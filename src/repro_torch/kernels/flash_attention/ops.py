@@ -1,12 +1,23 @@
 """Public flash-attention wrapper in the model layout: device dispatch,
-input checks, launch count.
+route choice, input checks, launch counts.
 
 `gqa_flash` takes q ``[B, S, N, h]`` and k, v ``[B, S, K, h]`` with N a
 multiple of K. For CPU tensors it repeats the kv heads and runs the plain
-version (`ref.attention_ref`), as the JAX package's wrapper does; for CUDA
-tensors it launches ``csrc/flash_attention.cu``, which reads the model
-layout through strides (no repeat, no transpose), and counts the launch in
-``gqa_flash.launches``.
+version (`ref.attention_ref`), as the JAX package's wrapper does. For CUDA
+tensors it launches one of two kernels, which read the model layout through
+strides (no repeat, no transpose), chosen by dtype and head width alone
+(`route`):
+
+  * ``"wgmma"``: bf16 with h a multiple of 16 up to 256
+    (``csrc/flash_attention_wgmma.cu``, tensor cores, TMA pipeline);
+  * ``"simt"``: float32 (TF32 on the tensor cores would miss the float32
+    limit of 2e-5), and bf16 with h a multiple of 8 but not of 16
+    (``csrc/flash_attention.cu``, CUDA cores).
+
+This is dispatch on dtype and shape, not a fallback: a failed build or
+launch of either kernel raises, and no route is tried after another.
+Launches count in ``gqa_flash.launches`` and, per route, in
+``gqa_flash.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -17,10 +28,19 @@ from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 MAX_HEAD_DIM = 256
+ROUTES = ("wgmma", "simt")
+
+
+def route(dtype: torch.dtype, h: int) -> str:
+    """The kernel a CUDA call with inputs of ``dtype`` and head width ``h``
+    launches: ``"wgmma"`` for bf16 with h a multiple of 16, else
+    ``"simt"``. (What neither kernel takes is rejected by the wrapper's
+    checks.)"""
+    return "wgmma" if dtype == torch.bfloat16 and h % 16 == 0 else "simt"
 
 
 def _check_kernel_inputs(q, k, v) -> None:
-    """Raise on what the CUDA kernel does not take."""
+    """Raise on what the CUDA kernels do not take."""
     h = q.shape[-1]
     if q.dtype not in kernel.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"gqa_flash: no kernel for dtypes {q.dtype}, {k.dtype}, "
@@ -52,12 +72,17 @@ def gqa_flash(q, k, v, *, causal: bool = True, window: int = 0):
         out = attention_ref(qt, kt, vt, causal=causal, window=window)
         return out.transpose(1, 2)
     _check_kernel_inputs(q, k, v)
+    chosen = route(q.dtype, h)
     out = torch.empty((B, S, N, h), dtype=q.dtype, device=q.device)
-    rc = kernel.launch(q, k, v, out, causal=causal, window=int(window))
+    rc = kernel.launch(q, k, v, out, causal=causal, window=int(window),
+                       route=chosen)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention {chosen} kernel launch failed: "
+                           f"CUDA error {rc}")
     gqa_flash.launches += 1
+    gqa_flash.launches_by_route[chosen] += 1
     return out
 
 
 gqa_flash.launches = 0
+gqa_flash.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -179,6 +179,23 @@ def _flash_plain(q, k, v, causal, window):
                          window=window).transpose(1, 2)
 
 
+def _flash_inputs(gen, B, S, N, K, h, dtype):
+    q = torch.randn((B, S, N, h), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, S, K, h), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def _launches():
+    return gqa_flash.launches, dict(gqa_flash.launches_by_route)
+
+
+def _assert_one_launch(before, route):
+    total, by_route = before
+    want = dict(by_route, **{route: by_route[route] + 1})
+    assert (gqa_flash.launches, gqa_flash.launches_by_route) == (total + 1, want)
+
+
 @pytest.mark.parametrize("h", [32, 128, 160, 256])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
@@ -187,23 +204,91 @@ def _flash_plain(q, k, v, causal, window):
     (77, True, 0), (128, False, 0), (160, False, 24)])
 def test_flash_attention_kernel_matches_plain(gen, h, dtype, tol, S, causal,
                                               window):
-    """float32 2e-5 (summation order); bfloat16 3e-2: the plain version
-    rounds scores and probabilities to bfloat16, the kernel keeps float32.
-    Windows 8 and 32 lie inside the kernel's 64-row query tiles, so rows
-    fully masked within a processed kv tile occur; S 200 and 77 are
-    ragged."""
+    """float32 2e-5 (summation order) on the CUDA-core route; bfloat16 3e-2
+    on the tensor-core route: the plain version rounds the scores to
+    bfloat16 before its float32 softmax, the kernel keeps them in float32
+    (both round the probabilities to bfloat16). Windows 8 and 32 lie
+    inside the kernels' 64-row query tiles, so rows fully masked within a
+    processed kv tile occur; S 200 and 77 are ragged."""
     B, N, K = 2, 4, 2
-    q = torch.randn((B, S, N, h), generator=gen, device="cuda").to(dtype)
-    k, v = (torch.randn((B, S, K, h), generator=gen, device="cuda").to(dtype)
-            for _ in range(2))
-    before = gqa_flash.launches
+    q, k, v = _flash_inputs(gen, B, S, N, K, h, dtype)
+    before = _launches()
     out = gqa_flash(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert gqa_flash.launches == before + 1
+    _assert_one_launch(before, "simt" if dtype == torch.float32 else "wgmma")
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(),
                                _flash_plain(q, k, v, causal, window).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("h", [32, 128, 160, 256])
+@pytest.mark.parametrize("S,causal,window", [
+    (200, True, 8), (200, True, 63), (200, True, 64), (200, True, 65),
+    (2000, True, 1024), (2000, True, 0), (77, True, 0), (200, False, 0),
+    (300, False, 65)])
+def test_flash_attention_wgmma_matches_plain(gen, h, S, causal, window):
+    """The tensor-core route in bf16 (3e-2) at the repo's head widths:
+    windows inside, at and across the 32/64-key and 64-row tile edges and
+    gemma3-4b's 1024; S ragged against both tile sizes; non-causal with
+    and without a window."""
+    q, k, v = _flash_inputs(gen, 2, S, 4, 2, h, torch.bfloat16)
+    before = _launches()
+    out = gqa_flash(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    _assert_one_launch(before, "wgmma")
+    torch.testing.assert_close(out.float(),
+                               _flash_plain(q, k, v, causal, window).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("N,K", [(4, 4), (4, 2), (8, 1), (16, 1), (6, 3)])
+@pytest.mark.parametrize("h", [128, 256])
+def test_flash_attention_wgmma_gqa_and_fused_views(gen, N, K, h):
+    """Query head n reads kv head n // (N / K) on the tensor-core route, with
+    q, k and v as views into one fused projection (strided heads)."""
+    B, S = 2, 192
+    qkv = torch.randn((B, S, N + 2 * K, h), generator=gen,
+                      device="cuda").bfloat16()
+    q, k, v = qkv[:, :, :N], qkv[:, :, N:N + K], qkv[:, :, N + K:]
+    before = _launches()
+    out = gqa_flash(q, k, v, window=65)
+    torch.cuda.synchronize()
+    _assert_one_launch(before, "wgmma")
+    torch.testing.assert_close(out.float(),
+                               _flash_plain(q, k, v, True, 65).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("h", [24, 40, 136])
+def test_flash_attention_bf16_widths_off_16_take_simt(gen, h):
+    """bf16 head widths that are a multiple of 8 but not of 16 go to the
+    CUDA-core kernel."""
+    q, k, v = _flash_inputs(gen, 2, 200, 4, 2, h, torch.bfloat16)
+    before = _launches()
+    out = gqa_flash(q, k, v, window=65)
+    torch.cuda.synchronize()
+    _assert_one_launch(before, "simt")
+    torch.testing.assert_close(out.float(),
+                               _flash_plain(q, k, v, True, 65).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+def test_flash_attention_simt_launcher_takes_bf16_at_h256(gen):
+    """The CUDA-core kernel launched directly (as chip_smoke.py times it
+    beside the tensor-core kernel) on the serve path's bf16 head width."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    q, k, v = _flash_inputs(gen, 2, 300, 4, 2, 256, torch.bfloat16)
+    out = torch.empty_like(q)
+    before = _launches()
+    assert flash_kernel.launch(q, k, v, out, causal=True, window=65,
+                               route="simt") == 0
+    torch.cuda.synchronize()
+    assert _launches() == before
+    torch.testing.assert_close(out.float(),
+                               _flash_plain(q, k, v, True, 65).float(),
+                               atol=3e-2, rtol=3e-2)
 
 
 @pytest.mark.parametrize("N,K", [(4, 4), (8, 1), (16, 1), (6, 3)])
@@ -213,7 +298,9 @@ def test_flash_attention_kernel_gqa_and_strides(gen, N, K):
     B, S, h = 2, 192, 64
     qkv = torch.randn((B, S, N + 2 * K, h), generator=gen, device="cuda")
     q, k, v = qkv[:, :, :N], qkv[:, :, N:N + K], qkv[:, :, N + K:]
+    before = _launches()
     out = gqa_flash(q, k, v, window=50)
+    _assert_one_launch(before, "simt")
     torch.testing.assert_close(out, _flash_plain(q, k, v, True, 50),
                                atol=2e-5, rtol=2e-5)
 

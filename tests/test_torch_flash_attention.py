@@ -100,3 +100,36 @@ def test_wrapper_rejects_mismatched_heads():
     kv = torch.zeros((1, 8, 4, 8))
     with pytest.raises(ValueError, match="K dividing N"):
         gqa_flash(q, kv, kv)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "command-r-plus-104b",
+                                  "gemma3-4b", "stablelm-12b"])
+def test_route_of_every_config_head_width(arch):
+    """On the card, bf16 at each head width of configs/ (256, 128, 160, and
+    the reduced configs' 32) takes the tensor-core kernel; float32 the
+    CUDA-core one."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.flash_attention.ops import route
+
+    for cfg in (get_config(arch), reduced_config(arch)):
+        assert cfg.head_dim % 16 == 0
+        assert route(torch.bfloat16, cfg.head_dim) == "wgmma"
+        assert route(torch.float32, cfg.head_dim) == "simt"
+
+
+@pytest.mark.parametrize("h", [8, 24, 40, 136, 248])
+def test_route_of_bf16_widths_off_16_is_simt(h):
+    from repro_torch.kernels.flash_attention.ops import route
+
+    assert route(torch.bfloat16, h) == "simt"
+    assert route(torch.bfloat16, h + 8) == "wgmma"
+
+
+def test_cpu_tensors_touch_no_route_counter():
+    before = dict(gqa_flash.launches_by_route)
+    assert set(before) == {"wgmma", "simt"}
+    for dtype, h in ((torch.float32, 16), (torch.bfloat16, 16),
+                     (torch.bfloat16, 24)):
+        x = torch.tensor(_normal((1, 40, 2, h), h)).to(dtype)
+        gqa_flash(x, x, x, window=8)
+    assert gqa_flash.launches_by_route == before

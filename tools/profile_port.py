@@ -25,7 +25,10 @@ At the rcv1 width (n = 20242, p = 2048; data from
     kernels over all SMs that read X once for all rows; a launch of one
     update times that loss pass;
   * the serve path at gemma3-4b's full width (batch 4, prompt 2048, bf16):
-    one prefill and 4 decode steps, each without and under the profiler.
+    one prefill and 4 decode steps, each without and under the profiler;
+    then 5 prefills in a row on a fresh session, each timed by the host
+    clock around a synchronised call and by CUDA events, with the device
+    allocations (`cudaMalloc`s of PyTorch's caching allocator) it made.
 
 Prints one JSON line per configuration, and the card's name and power limit
 first. Needs a CUDA device; fails without one.
@@ -270,6 +273,24 @@ def profile_serve(decode_steps: int = 4) -> None:
                       "wall_ms_per_step": 1e3 * wall / decode_steps,
                       "profiled_wall_ms_per_step": 1e3 * prof_wall / decode_steps,
                       **_summary(events, prof_wall, decode_steps)}), flush=True)
+
+    sess = ServeSession(bundle, params, 2048)
+    for i in range(5):
+        allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        sess.prefill(batch)
+        stop.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(json.dumps({
+            "serve": "prefill_repeat", "call": i, "wall_s": wall,
+            "event_s": start.elapsed_time(stop) / 1e3,
+            "device_allocs": torch.cuda.memory_stats().get(
+                "num_device_alloc", 0) - allocs}), flush=True)
 
 
 def main(argv=None) -> int:
