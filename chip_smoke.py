@@ -6,13 +6,16 @@
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc
 (sm_90a), all at once, and holds each kernel against its plain torch
 version on the card at the main path's shapes: `svrg_update`, `logreg_grad`
-and `sweep_epoch` (rcv1 and news20 widths, the ring in shared and in device
-memory; its in-kernel generator bit for bit against `repro_torch.prng`), and
+and `sweep_epoch` (rcv1 and news20 widths, each case at every placement of
+the ring and the staged rows that fits, bit-equal at the main path's shape;
+its in-kernel generator bit for bit against `repro_torch.prng`), and
 `flash_attention` at gemma3-4b's prefill shapes (windows 0 and 1024, bf16
 on the tensor-core kernel and float32 on the CUDA-core one, a ragged
 length, GQA 16:1), timed beside its plain version, the CUDA-core kernel on
 the same bf16 inputs and `scaled_dot_product_attention`; the tensor-core
-library's SASS must hold `HGMMA` and `UTMALDG`. It then drives each path through the entry
+library's SASS must hold `HGMMA` and `UTMALDG`, the sweep library's the bulk
+copy, the L2 prefetch and the mbarrier wait, with no register spills. It
+then drives each path through the entry
 points a user calls, with the launch counters set to 0 just before and read
 just after; the paper's paths at the full width of the rcv1 configuration
 (n = 20242, p = 2048):
@@ -44,6 +47,8 @@ vocab 262144; random weights from a seed, bf16 activations):
 (the 4-row rcv1 group, 40480 inner updates); its other cases (Hogwild!,
 news20, the ring in device memory) at 4096 inner updates, since the plain
 version steps in Python, one update at a time (~3 minutes for the full one).
+Its time per update is recorded for the 4-row rcv1 group, the Hogwild! row
+and the news20 group.
 
 Each phase prints one JSON line; any failed check raises and the script
 exits non-zero. The second-to-last line is the kernel report, the last line
@@ -122,19 +127,42 @@ def phase_device():
         text = log.read_text() if log.exists() else ""
         ptxas[name] = [ln.strip() for ln in text.splitlines()
                        if "registers" in ln or "spill" in ln]
-    # the tensor-core attention kernel's SASS: wgmma and TMA loads
-    lib = _build.target("flash_attention_wgmma")[1]
-    sass = subprocess.run(
-        [str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
-        capture_output=True, text=True, check=True, timeout=120).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    # the tensor-core attention kernel's SASS: wgmma and TMA loads; the
+    # sweep kernel's: bulk copies of rows, their L2 prefetches and mbarrier
+    # waits
+    counts = sass_counts("flash_attention_wgmma", ("HGMMA", "UTMALDG"))
+    k3_counts = sass_counts("sweep_epoch", K3_SASS)
     emit(phase="device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
-         flash_attention_wgmma_sass=counts)
+         flash_attention_wgmma_sass=counts, sweep_epoch_sass=k3_counts)
     if not all(counts.values()):
         raise AssertionError(f"flash_attention_wgmma SASS lacks wgmma or TMA: "
                              f"{counts}")
+    if not all(k3_counts.values()):
+        raise AssertionError(f"sweep_epoch SASS lacks bulk copies, L2 "
+                             f"prefetches or mbarrier waits: {k3_counts}")
+    spills = [ln for ln in ptxas["sweep_epoch"]
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
+              not in ln]
+    if spills:
+        raise AssertionError(f"sweep_epoch spills registers: {spills}")
+
+
+# SASS of the sweep kernel's pipeline: the bulk copy of a row into shared
+# memory, the bulk prefetch into L2, the mbarrier's try-wait
+K3_SASS = ("UBLKCP", "UBLKPF", "SYNCS.PHASECHK")
+
+
+def sass_counts(name, opcodes):
+    """How often each opcode occurs in one kernel library's SASS."""
+    from repro_torch.kernels import _build
+
+    sass = subprocess.run(
+        [str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
+         str(_build.target(name)[1])],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    return {op: sass.count(op) for op in opcodes}
 
 
 def phase_kernels(ds):
@@ -213,10 +241,15 @@ def sweep_epoch_vs_plain(ds, gen):
     """sweep_epoch against its plain version on random w and mu with the real
     data, iterate and loss: at the main path's shape (the 4-row rcv1 AsySVRG
     group, the full epoch), which is also timed; then a 1-row Hogwild! group
-    at rcv1, three news20 rows (shared memory at its ceiling) and one rcv1
-    row with tau = 40 (the ring in device memory) at PLAIN_UPDATES steps."""
+    at rcv1, three news20 rows (no row stage fits beside a shared ring) and
+    one rcv1 row with tau = 40 (the ring in device memory) at PLAIN_UPDATES
+    steps. Each case runs once at the placement chosen by size and once at
+    every other placement that fits (named through `sweep_epoch`'s
+    ``placement``), each against the same plain result. The Hogwild! and news20 cases are
+    timed too, per update."""
     from repro_torch import prng
     from repro_torch.data.libsvm import make_synthetic_libsvm
+    from repro_torch.kernels.sweep_epoch import kernel, ops
     from repro_torch.kernels.sweep_epoch.ops import sweep_epoch
     from repro_torch.kernels.sweep_epoch.ref import sweep_epoch_ref
 
@@ -224,19 +257,20 @@ def sweep_epoch_vs_plain(ds, gen):
     X, y = ds.as_torch("cuda")
     n, d = X.shape
     full = THREADS * ((2 * n) // THREADS)
+    limit = kernel.max_shared_bytes(torch.device("cuda"))
     # (name, data, engine, tau, scheme ids, delay ids, buf_len, expected
-    # ring, inner updates)
+    # placement, inner updates)
     cases = [("rcv1_asysvrg_4rows", (X, y, ds.l2_reg), "asysvrg",
               [7, 7, 7, 0], [0, 1, 2, 0], [1, 1, 1, 0], 8, "shared", full),
              ("rcv1_hogwild_unlock", (X, y, ds.l2_reg), "hogwild",
               [7], [2], [1], 8, "shared", PLAIN_UPDATES),
              ("news20_asysvrg_3rows", (*news20.as_torch("cuda"), news20.l2_reg),
-              "asysvrg", [9, 9, 9], [0, 1, 2], [1, 1, 2], 10, "shared",
+              "asysvrg", [9, 9, 9], [0, 1, 2], [1, 1, 2], 10, "global",
               PLAIN_UPDATES),
              ("rcv1_unlock_tau40", (X, y, ds.l2_reg), "asysvrg",
               [40], [2], [2], 41, "global", PLAIN_UPDATES)]
     timed = None
-    for (name, (Xc, yc, l2), engine, tau, scheme, delay, buf_len, ring,
+    for (name, (Xc, yc, l2), engine, tau, scheme, delay, buf_len, where,
          total) in cases:
         C, dc = len(tau), Xc.shape[1]
         w = 0.1 * torch.randn((C, dc), generator=gen, device="cuda")
@@ -251,29 +285,50 @@ def sweep_epoch_vs_plain(ds, gen):
         out, loss = sweep_epoch(*args, **kw)
         torch.cuda.synchronize()
         used = [k for k, v in sweep_epoch.placements.items() if v != before[k]]
+        if used != [where]:
+            raise AssertionError(f"sweep_epoch {name}: placement {used}, "
+                                 f"expected {where}")
         t0 = time.perf_counter()
         ref, ref_loss = sweep_epoch_ref(*args, **kw)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-        err = float((out - ref).abs().max())
-        loss_err = float((loss - ref_loss).abs().max())
-        loss_rel = float(((loss - ref_loss).abs() / ref_loss.abs()).max())
+        results = {where: (out, loss)}
+        for placement in ops.PLACEMENTS:
+            if (placement not in results and ops.shared_bytes(
+                    dc, buf_len, engine, placement) <= limit):
+                results[placement] = sweep_epoch(*args, **kw,
+                                                 placement=placement)
+        torch.cuda.synchronize()
+        placements = {}
+        for placement, (o, lo) in results.items():
+            placements[placement] = dict(
+                max_abs_err=float((o - ref).abs().max()),
+                loss_abs_err=float((lo - ref_loss).abs().max()),
+                loss_rel_err=float(((lo - ref_loss).abs()
+                                    / ref_loss.abs()).max()),
+                bits_equal=bool(torch.equal(o, ref)),
+                loss_bits_equal=bool(torch.equal(lo, ref_loss)),
+                finite=bool(torch.isfinite(o).all()
+                            and torch.isfinite(lo).all()))
+        main = placements.pop(where)
         rec = dict(kernel="sweep_epoch", case=name, rows=C, n=Xc.shape[0],
                    d=dc, engine=engine, tau=tau, updates=total,
-                   placement=used, tol=1e-5, max_abs_err=err,
-                   bits_equal=bool(torch.equal(out, ref)),
-                   loss=loss.tolist(), loss_rtol=1e-6, loss_abs_err=loss_err,
-                   loss_rel_err=loss_rel,
-                   loss_bits_equal=bool(torch.equal(loss, ref_loss)),
-                   finite=bool(torch.isfinite(out).all()
-                               and torch.isfinite(loss).all()),
-                   plain_s=plain_s)
+                   placement=where, stages=ops.STAGES, tol=1e-5,
+                   loss_rtol=1e-6, loss=loss.tolist(), **main,
+                   other_placements=placements, plain_s=plain_s)
+        if name != "rcv1_asysvrg_4rows":
+            ms = median_ms(lambda: sweep_epoch(*args, **kw), reps=5, inner=1)
+            rec.update(ms=ms, us_per_update=1e3 * ms / total)
         emit(phase="kernels_vs_plain", **rec)
-        if not (err <= 1e-5 and loss_rel <= 1e-6 and rec["finite"]
-                and used == [ring]):
+        if not all(v["max_abs_err"] <= 1e-5 and v["loss_rel_err"] <= 1e-6
+                   and v["finite"] for v in (main, *placements.values())):
             raise AssertionError(f"sweep_epoch disagrees: {rec}")
-        if timed is None:
-            timed = (args, kw, C, max(err, loss_err), plain_s)
+        if name == "rcv1_asysvrg_4rows":
+            if not (main["bits_equal"] and main["loss_bits_equal"]):
+                raise AssertionError(f"sweep_epoch not bit-equal at the main "
+                                     f"path's shape: {rec}")
+            timed = (args, kw, C, max(main["max_abs_err"],
+                                      main["loss_abs_err"]), plain_s)
 
     # time at the main path's shape, on the inputs just checked
     args, kw, C, err, plain_s = timed
@@ -287,8 +342,8 @@ def sweep_epoch_vs_plain(ds, gen):
     bnd, by = bound_ms(4 * (n * d + n + 3 * C * d + C),
                        C * (15 * total * d + 2 * n * d))
     rec = dict(kernel="sweep_epoch", case="rcv1_asysvrg_4rows_timed", rows=C,
-               updates=total, ms=ms, us_per_update=1e3 * ms / total,
-               plain_ms=1e3 * plain_s,
+               updates=total, placement="shared", stages=ops.STAGES, ms=ms,
+               us_per_update=1e3 * ms / total, plain_ms=1e3 * plain_s,
                plain_ms_from="one run of the plain version at this shape",
                bound_ms=bnd, bound_by=by, library_ms=None, max_abs_err=err)
     emit(phase="kernels_vs_plain", **rec)

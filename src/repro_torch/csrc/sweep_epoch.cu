@@ -25,30 +25,58 @@
 // src/repro_torch/prng.py, so a seed draws the same samples here, in the batched engine and
 // in the JAX package.
 //
-// Bound on this card: bytes, for one launch. Each input read once (X, y, every row's w and
-// mu) and each output written once: at rcv1 (n = 20242, d = 2048) with 4 rows ~166 MB, ~0.05
-// ms at 3.35 TB/s; ~12 d float32 operations per row and update, ~4 GFLOP, ~0.06 ms at 67
-// TFLOP/s (the loss adds ~2 n d per row). The kernel sits far above both: it is a chain of
-// `total` dependent updates per row, each waiting on a random row of X and on two block-wide
-// dot products, on C of the 132 SMs.
+// Bound on this card: operations, for one launch. Each input read once (X, y, every row's w
+// and mu) and each output written once: at rcv1 (n = 20242, d = 2048) with 4 rows ~166 MB,
+// ~0.05 ms at 3.35 TB/s; ~15 d float32 operations per row and update plus ~2 n d per row for
+// the loss, ~5.3 GFLOP, ~0.08 ms at 67 TFLOP/s. The kernel sits far above both: it is a chain
+// of `total` dependent updates per row, each ending in two block-wide float64 dot products
+// and a barrier, on C of the 132 SMs. What the design takes off that chain is everything that
+// does not depend on the previous update.
 //
-// Design (simple and right first):
-//   * One CTA per row, threads fixed by d alone (a multiple of 32, at most 512). Thread t owns
+// Design: a warp-specialised pipeline, one CTA per row.
+//   * Consumers: T threads, fixed by d alone (a multiple of 32, at most 512). Thread t owns
 //     coordinates j = t, t + T, ...: u, the ring, u0, mu, acc and the read iterate of those
-//     coordinates are touched by that thread only, so only the dot products synchronise.
-//   * State in shared memory: u0, mu and acc (AsySVRG only), the read iterate and the ring
-//     (buf_len d floats; the current iterate u_m is ring slot m mod (tau + 1)), plus the
-//     reduction scratch: (buf_len + 4) d 4 bytes + 512 for AsySVRG, (buf_len + 1) d 4 bytes +
-//     512 for Hogwild!. Above the card's per-block limit the wrapper passes a [C, buf_len, d]
-//     device buffer and the ring lives there instead.
-//   * Step draws lane-parallel: in every warp, lanes hash the step's four independent counters
-//     (two index words, the delay, the step key) at once, then the step key's two children,
-//     and share them by shuffles; each thread hashes its own coordinates' read and drop draws.
+//     coordinates are touched by that thread only, so only the dot products synchronise, on a
+//     named barrier of the T consumers (bar.sync 1, T), once per step (double-buffered scratch).
+//   * Producer: one more warp, which never joins that barrier. It draws step m's scalars
+//     lane-parallel (lanes hash the two index words, the delay and the step key at once, then
+//     the step key's two children, and share them by shuffles) up to S - 1 steps before the
+//     consumers reach step m, and writes them into entry m mod S of a queue in shared memory:
+//     the sample index i_m, y[i_m], the read slots age mod (tau + 1) and, for the inconsistent
+//     reader, min(age + 1, m) mod (tau + 1), the unlock reader's range m - age + 1, and the
+//     step's read and drop keys. Each entry has a full and an empty mbarrier: the consumers
+//     wait on full, and consumer 0 arrives on empty once every consumer is past the step's
+//     second pass (at the next step's barrier). No threefry of the step draws, no integer
+//     division and no `% (tau + 1)` per coordinate is left on the chain: the unlock reader's
+//     slot is age mod (tau + 1) plus an offset of at most tau, wrapped by one subtraction.
+//     Each thread still hashes its own coordinates' read and drop draws.
+//   * Staged placements: the producer also copies x_{i_m} into stage m mod S in shared memory,
+//     a 1-D bulk copy (cp.async.bulk ... mbarrier::complete_tx::bytes) that completes on the
+//     entry's full barrier, so the random row's device-memory latency is paid off the chain and
+//     both passes read x from shared memory. A bulk copy needs 16-byte-aligned addresses and a
+//     size in 16-byte units, and rows of X are 16-byte aligned only when d % 4 == 0: the copy
+//     takes the aligned span that covers the row, and the consumers read the row at its offset
+//     (0-3 floats) in the span. The span reaches at most 12 bytes past either end of the row,
+//     inside the 16-byte granules that hold the row's first and last bytes, so it never leaves
+//     mapped memory; those bytes are never read.
+//   * The L2 placement, where not even the stages fit beside the state with the ring in device
+//     memory: the producer prefetches the same span into L2 (cp.async.bulk.prefetch.L2)
+//     instead, and the consumers read x from device memory.
+//   * The ring of buf_len iterates (u_m is slot m mod (tau + 1)) lives in shared memory, or
+//     in a [C, buf_len, d] device buffer that the wrapper passes when it does not fit. The
+//     wrapper picks one of three placements by size (kernels/sweep_epoch/ops.py) and passes
+//     the bytes; the launch fails with cudaErrorInvalidValue where they disagree with this
+//     layout of the dynamic shared memory:
+//       reduction scratch (512) | S full and S empty mbarriers, S queue entries (64 S) |
+//       S stages (16 ceil(d / 4) + 16 each; staged only) | u0, mu, acc (AsySVRG only) and the
+//       read iterate (4 d each) | the ring (4 d buf_len; ring in shared memory only)
+//   * A mbarrier wait that outlasts 2^24 tries traps, so a broken pipeline fails its launch
+//     instead of hanging the card.
 //   * x_i . u_read and x_i . u0: float32 products summed in float64, per thread over its
 //     coordinates in order, then a fixed xor-shuffle tree, then the warps in order. The
 //     sigmoid is float64, rounded once to float32, as objective.sample_grad_stable does. The
 //     order depends on d alone, so a row's result never depends on its group (bit-equal alone
-//     and in a group, by construction). One __syncthreads per step (double-buffered scratch).
+//     and in a group, by construction), nor on the placement.
 //   * Elementwise float32 math with explicit round-to-nearest intrinsics, no fused
 //     multiply-add, in the order of the plain version (kernels/sweep_epoch/ref.py).
 //   * The loss, in two more kernels of the same launch call, over every SM: one SM streams X
@@ -57,17 +85,22 @@
 //     sums, a shuffle tree) into a [C, n] float64 buffer; a block per row adds its n terms and
 //     ||w'||^2 in a fixed order and rounds once, as objective.loss_fixed_order does. The order
 //     is set by n and d alone, so the loss too is bit-equal alone and in a group.
-// Not yet: TMA, wgmma, clusters, prefetch of the next sampled row (indices are known ahead).
+// Not yet: a cluster per row, the per-coordinate read and drop hashes off the chain.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxThreads = 512;
+constexpr int kMaxThreads = 512;  // consumers; the producer warp comes on top
 constexpr int kMaxWarps = kMaxThreads / 32;
+// Queue depth S: steps drawn, and rows staged, ahead of the consumers. S = 2, 3 and 4 ran within 1%
+// on 1 to 4 rows of an H100; S = 2 lets two rcv1 blocks share an SM (PERF.md, K3). To measure
+// another depth, change it here and run `tools/profile_port.py sweep_epoch`.
+constexpr int kStages = 2;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr long long kScratchBytes = 2LL * 2 * kMaxWarps * sizeof(double);
-constexpr int kLossThreads = 256;  // the loss kernels' block size, part of their sum order
+constexpr long long kStepBytes = 64;  // per stage: two mbarriers and one queue entry
+constexpr int kLossThreads = 256;     // the loss kernels' block size, part of their sum order
 
 struct Key {
   uint32_t k0, k1;
@@ -159,11 +192,27 @@ __device__ __forceinline__ Step draw_step(const RowKeys& rk, int m, uint32_t spa
   return s;
 }
 
-__device__ __forceinline__ int read_slot(int scheme, const Step& st, int m, int slots, int j) {
-  if (scheme == 0) return st.age % slots;
-  const float u = uniform_at(st.read, (uint32_t)j);
-  if (scheme == 1) return (u < 0.5f ? st.age : min(st.age + 1, m)) % slots;
-  return (st.age + (int)floorf(__fmul_rn(u, (float)(m - st.age + 1)))) % slots;
+// One step as the producer hands it to the consumers.
+struct Entry {
+  int idx;     // sample index i_m
+  float yi;    // y[i_m]
+  int slot;    // age mod (tau + 1)
+  int slot_b;  // min(age + 1, m) mod (tau + 1)
+  float span;  // m - age + 1
+  int off;     // the row's offset in its stage, in floats
+  Key read;    // per-coordinate reader draws
+  Key drop;    // per-coordinate drop draws
+};
+static_assert(sizeof(Entry) + 2 * sizeof(uint64_t) <= kStepBytes, "queue entry too large");
+
+// Slot of coordinate j in the ring for the row's reader. Equal to (a + k) mod (tau + 1) for the
+// read age a and the reader's offset k in [0, tau + 1], as the plain version computes it.
+__device__ __forceinline__ int read_slot(int scheme, const Entry& e, int slots, int j) {
+  if (scheme == 0) return e.slot;
+  const float u = uniform_at(e.read, (uint32_t)j);
+  if (scheme == 1) return u < 0.5f ? e.slot : e.slot_b;
+  const int s = e.slot + (int)floorf(__fmul_rn(u, e.span));
+  return s >= slots ? s - slots : s;
 }
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -182,6 +231,59 @@ __device__ __forceinline__ float residual(float yi, double z) {
   return __fmul_rn(-yi, s);
 }
 
+// ---- PTX wrappers -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait for the completion of the phase with parity `parity`; trap after 2^24 tries.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 24)) __trap();
+  }
+}
+// bytes (a multiple of 16) from 16-byte-aligned src in device memory to dst in shared memory,
+// completing on the mbarrier bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, uint64_t src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void prefetch_l2(uint64_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+// the consumers' barrier: named barrier 1 over the first `threads` threads
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+__host__ __device__ __forceinline__ long long stage_bytes(long long d) {
+  return (4 * d + 15) / 16 * 16 + 16;
+}
+
 struct Params {
   const float* X;
   const float* y;
@@ -197,44 +299,104 @@ struct Params {
   float l2, keep_p;
 };
 
-template <bool kSvrg>
-__global__ void __launch_bounds__(kMaxThreads) sweep_epoch_kernel(Params p) {
-  extern __shared__ double smem[];
-  double* scratch = smem;  // [2 steps][2 sums][kMaxWarps]
-  const int d = p.d;
-  float* state = reinterpret_cast<float*>(smem + 4 * kMaxWarps);
-  float* u0 = state;  // u0, mu and acc: AsySVRG only
-  float* mu = u0 + d;
-  float* acc = mu + d;
-  float* ur = kSvrg ? acc + d : state;  // the read iterate
-  const int c = blockIdx.x;
-  float* ring = p.ring ? p.ring + (size_t)c * p.buf_len * d : ur + d;
-  const int tid = threadIdx.x, T = blockDim.x, lane = tid & 31, warp = tid >> 5;
-  const int warps = T >> 5;
-  const int tau = p.row_ints[c], scheme = p.row_ints[p.C + c], delay_id = p.row_ints[2 * p.C + c];
-  const int slots = tau + 1;
-  const bool masked = p.drop && scheme == 2;
-  const float step = p.step[c];
+// The producer warp: steps 0 .. total - 1 into the queue, and with kStaged their rows of X into
+// the stages.
+template <bool kStaged>
+__device__ __forceinline__ void produce(const Params& p, Entry* queue, float* stages,
+                                        uint32_t full0, uint32_t empty0, int tau, int delay_id,
+                                        int lane) {
+  const int c = blockIdx.x, d = p.d, slots = tau + 1;
+  const long long stride = stage_bytes(d) / 4;
   const RowKeys rk = row_keys({(uint32_t)p.keys[2 * c], (uint32_t)p.keys[2 * c + 1]});
-
-  for (int j = tid; j < d; j += T) {
-    const float wj = p.w[(size_t)c * d + j];
-    for (int s = 0; s < slots; ++s) ring[(size_t)s * d + j] = wj;
-    if (kSvrg) {
-      u0[j] = wj;
-      mu[j] = p.mu[(size_t)c * d + j];
-      acc[j] = 0.0f;
+  for (int m = 0, s = 0, round = 0; m < p.total; ++m) {
+    const Step st = draw_step(rk, m, p.span, p.mult, tau, delay_id, lane);
+    if (lane == 0) {
+      const float yi = __ldg(p.y + st.idx);
+      const uint64_t row = reinterpret_cast<uint64_t>(p.X + (size_t)st.idx * d);
+      const uint64_t start = row & ~15ull;
+      const uint32_t bytes = (uint32_t)(((row + 4ull * d + 15ull) & ~15ull) - start);
+      mbar_wait(empty0 + 8 * s, (round & 1) ^ 1);  // round 0 passes: the stage starts empty
+      Entry& e = queue[s];
+      e.idx = st.idx;
+      e.yi = yi;
+      e.slot = st.age % slots;
+      e.slot_b = min(st.age + 1, m) % slots;
+      e.span = (float)(m - st.age + 1);
+      e.off = (int)(row - start) >> 2;
+      e.read = st.read;
+      e.drop = st.drop;
+      if (kStaged) {
+        mbar_expect_tx(full0 + 8 * s, bytes);
+        bulk_copy(smem_addr(stages + s * stride), start, bytes, full0 + 8 * s);
+      } else {
+        prefetch_l2(start, bytes);
+        mbar_arrive(full0 + 8 * s);
+      }
+    }
+    __syncwarp();
+    if (++s == kStages) {
+      s = 0;
+      ++round;
     }
   }
+}
 
-  for (int m = 0; m < p.total; ++m) {
-    const Step st = draw_step(rk, m, p.span, p.mult, tau, delay_id, lane);
-    const float* x = p.X + (size_t)st.idx * d;
-    const float yi = __ldg(p.y + st.idx);
+template <bool kSvrg, bool kStaged>
+__global__ void __launch_bounds__(kMaxThreads + 32) sweep_epoch_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int d = p.d;
+  const int T = blockDim.x - 32;  // consumers; the last warp is the producer
+  double* scratch = reinterpret_cast<double*>(smem);  // [2 steps][2 sums][kMaxWarps]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kScratchBytes);  // full[S], empty[S]
+  Entry* queue = reinterpret_cast<Entry*>(bars + 2 * kStages);
+  float* stages = reinterpret_cast<float*>(smem + kScratchBytes + kStages * kStepBytes);
+  const long long stride = kStaged ? stage_bytes(d) / 4 : 0;
+  float* u0 = stages + kStages * stride;  // u0, mu and acc: AsySVRG only
+  float* mu = u0 + d;
+  float* acc = mu + d;
+  float* ur = kSvrg ? acc + d : u0;  // the read iterate
+  const int c = blockIdx.x;
+  float* ring = p.ring ? p.ring + (size_t)c * p.buf_len * d : ur + d;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = T >> 5;
+  const int tau = p.row_ints[c], scheme = p.row_ints[p.C + c], delay_id = p.row_ints[2 * p.C + c];
+  const int slots = tau + 1;
+  const uint32_t full0 = smem_addr(bars), empty0 = smem_addr(bars + kStages);
+
+  if (tid == T) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < T) {
+    for (int j = tid; j < d; j += T) {
+      const float wj = p.w[(size_t)c * d + j];
+      for (int s = 0; s < slots; ++s) ring[(size_t)s * d + j] = wj;
+      if (kSvrg) {
+        u0[j] = wj;
+        mu[j] = p.mu[(size_t)c * d + j];
+        acc[j] = 0.0f;
+      }
+    }
+  }
+  __syncthreads();  // the last barrier of the whole block: the producer leaves after its loop
+  if (tid >= T) {
+    produce<kStaged>(p, queue, stages, full0, empty0, tau, delay_id, lane);
+    return;
+  }
+
+  const bool masked = p.drop && scheme == 2;
+  const float step = p.step[c];
+  int cur = 0;  // m mod (tau + 1): the ring slot of u_m
+  for (int m = 0, s = 0, round = 0; m < p.total; ++m) {
+    mbar_wait(full0 + 8 * s, round & 1);
+    const Entry e = queue[s];
+    const float* x = kStaged ? stages + s * stride + e.off : p.X + (size_t)e.idx * d;
     double part = 0.0, part0 = 0.0;
     for (int j = tid; j < d; j += T) {
-      const float xj = __ldg(x + j);
-      const float r = ring[(size_t)read_slot(scheme, st, m, slots, j) * d + j];
+      const float xj = kStaged ? x[j] : __ldg(x + j);
+      const float r = ring[(size_t)read_slot(scheme, e, slots, j) * d + j];
       ur[j] = r;
       part += (double)__fmul_rn(xj, r);
       if (kSvrg) part0 += (double)__fmul_rn(xj, u0[j]);
@@ -246,20 +408,22 @@ __global__ void __launch_bounds__(kMaxThreads) sweep_epoch_kernel(Params p) {
       sc[warp] = part;
       sc[kMaxWarps + warp] = part0;
     }
-    __syncthreads();
+    consumer_sync(T);
+    // every consumer is past step m - 1's second pass: its entry and stage may be refilled
+    if (tid == 0 && m > 0) mbar_arrive(empty0 + 8 * (s == 0 ? kStages - 1 : s - 1));
     double z = 0.0, z0 = 0.0;
     for (int q = 0; q < warps; ++q) {
       z += sc[q];
       if (kSvrg) z0 += sc[kMaxWarps + q];
     }
-    const float coef = residual(yi, z);
-    const float coef0 = kSvrg ? residual(yi, z0) : 0.0f;
-    const int cur = m % slots, next = (m + 1) % slots;
+    const float coef = residual(e.yi, z);
+    const float coef0 = kSvrg ? residual(e.yi, z0) : 0.0f;
+    const int next = cur + 1 == slots ? 0 : cur + 1;
     for (int j = tid; j < d; j += T) {
-      const float xj = __ldg(x + j);
+      const float xj = kStaged ? x[j] : __ldg(x + j);
       const float u = ring[(size_t)cur * d + j];
       float g = __fadd_rn(__fmul_rn(coef, xj), __fmul_rn(p.l2, ur[j]));
-      const float keep = masked && !(uniform_at(st.drop, (uint32_t)j) < p.keep_p) ? 0.0f : 1.0f;
+      const float keep = masked && !(uniform_at(e.drop, (uint32_t)j) < p.keep_p) ? 0.0f : 1.0f;
       float un;
       if (kSvrg) {
         float g0 = __fadd_rn(__fmul_rn(coef0, xj), __fmul_rn(p.l2, u0[j]));
@@ -277,12 +441,16 @@ __global__ void __launch_bounds__(kMaxThreads) sweep_epoch_kernel(Params p) {
       }
       ring[(size_t)next * d + j] = un;
     }
+    cur = next;
+    if (++s == kStages) {
+      s = 0;
+      ++round;
+    }
   }
 
-  const int last = p.total % slots;
-  for (int j = tid; j < d; j += T) {
+  for (int j = tid; j < d; j += T) {  // cur = total mod (tau + 1)
     p.out[(size_t)c * d + j] = kSvrg && p.option == 2 ? __fdiv_rn(acc[j], (float)p.total)
-                                                      : ring[(size_t)last * d + j];
+                                                      : ring[(size_t)cur * d + j];
   }
 }
 
@@ -367,15 +535,25 @@ uint32_t fold_multiplier(uint32_t span) {
   return (r * r) % span;
 }
 
-}  // namespace
-
-// Dynamic shared memory of one block of `engine` (0 = AsySVRG, 1 = Hogwild!), with the ring in
-// shared memory or not.
-extern "C" long long sweep_epoch_shared_bytes(long long d, long long buf_len, int engine,
-                                              int ring_shared) {
-  const long long vectors = (engine == 0 ? 4 : 1) + (ring_shared ? buf_len : 0);
-  return kScratchBytes + vectors * d * 4;
+// Dynamic shared memory of one block: the layout in the design notes above.
+long long layout_bytes(long long d, long long buf_len, bool svrg, bool ring_shared, bool staged) {
+  const long long vectors = (svrg ? 4 : 1) + (ring_shared ? buf_len : 0);
+  return kScratchBytes + kStages * (kStepBytes + (staged ? stage_bytes(d) : 0)) + vectors * d * 4;
 }
+
+template <bool kSvrg, bool kStaged>
+int launch_rows(const Params& p, long long bytes, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(sweep_epoch_kernel<kSvrg, kStaged>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused size is reported here, not to the next caller
+    return (int)err;
+  }
+  sweep_epoch_kernel<kSvrg, kStaged><<<(unsigned)p.C, threads_for(p.d) + 32, (size_t)bytes, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // The most dynamic shared memory a block may opt in to on `device` (232,448 on an H100).
 extern "C" long long sweep_epoch_max_shared_bytes(int device) {
@@ -389,34 +567,29 @@ extern "C" long long sweep_epoch_max_shared_bytes(int device) {
 // X [n, d], y [n], w [C, d], mu [C, d] (ignored by Hogwild!, may be null), keys [C, 2] int64
 // holding uint32 words, step [C] float32, row_ints [3, C] int32 (tau, scheme, delay id),
 // ring [C, buf_len, d] or null, out [C, d], terms [C, n] float64 scratch, loss [C]:
-// contiguous, on one device. engine: 0 = AsySVRG, 1 = Hogwild!. Returns the first CUDA error
-// code of the three launches (0 = success).
+// contiguous, on one device. engine: 0 = AsySVRG, 1 = Hogwild!; staged: 1 = rows of X through
+// shared-memory stages, 0 = through L2 prefetches; smem_bytes: the caller's size of the dynamic
+// shared memory, which must equal this file's layout. Returns the first CUDA error code of the three launches (0 = success).
 extern "C" int sweep_epoch_launch(const float* X, const float* y, const float* w, const float* mu,
                                   const long long* keys, const float* step, const int* row_ints,
                                   float* ring, float* out, double* terms, float* loss, long long n,
                                   long long d, long long C, long long total, long long buf_len,
-                                  int engine, int option, int drop, float l2, float keep_p,
-                                  void* stream) {
-  if (n <= 0 || d <= 0 || C <= 0 || total <= 0 || buf_len <= 0) return (int)cudaErrorInvalidValue;
-  Params p{X, y, w, mu, keys, step, row_ints, ring, out, (int)d, (int)C, (int)total,
-           (int)buf_len, option, drop, (uint32_t)n, fold_multiplier((uint32_t)n), l2, keep_p};
-  const long long bytes = sweep_epoch_shared_bytes(d, buf_len, engine, ring == nullptr);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = threads_for(d);
-  if (engine == 0) {
-    cudaError_t err = cudaFuncSetAttribute(sweep_epoch_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    sweep_epoch_kernel<true><<<(unsigned)C, threads, (size_t)bytes, st>>>(p);
-  } else if (engine == 1) {
-    cudaError_t err = cudaFuncSetAttribute(sweep_epoch_kernel<false>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    sweep_epoch_kernel<false><<<(unsigned)C, threads, (size_t)bytes, st>>>(p);
-  } else {
+                                  int engine, int option, int drop, int staged,
+                                  long long smem_bytes, float l2, float keep_p, void* stream) {
+  if (n <= 0 || d <= 0 || C <= 0 || total <= 0 || buf_len <= 0 || engine < 0 || engine > 1) {
     return (int)cudaErrorInvalidValue;
   }
-  int err = (int)cudaGetLastError();
+  const long long bytes =
+      layout_bytes(d, buf_len, engine == 0, ring == nullptr, staged != 0);
+  if (bytes != smem_bytes) return (int)cudaErrorInvalidValue;
+  Params p{X, y, w, mu, keys, step, row_ints, ring, out, (int)d, (int)C, (int)total,
+           (int)buf_len, option, drop, (uint32_t)n, fold_multiplier((uint32_t)n), l2,
+           keep_p};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = engine == 0 ? (staged ? launch_rows<true, true>(p, bytes, st)
+                                  : launch_rows<true, false>(p, bytes, st))
+                        : (staged ? launch_rows<false, true>(p, bytes, st)
+                                  : launch_rows<false, false>(p, bytes, st));
   if (err != 0) return err;
   const long long warps = kLossThreads / 32;
   loss_terms_kernel<<<(unsigned)((n + warps - 1) / warps), kLossThreads, 0, st>>>(

@@ -19,52 +19,47 @@ ENGINE_CODES = {"asysvrg": 0, "hogwild": 1}
 @functools.cache
 def _entries():
     lib = library("sweep_epoch")
-    shared = lib.sweep_epoch_shared_bytes
-    shared.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int]
-    shared.restype = ctypes.c_longlong
     max_shared = lib.sweep_epoch_max_shared_bytes
     max_shared.argtypes = [ctypes.c_int]
     max_shared.restype = ctypes.c_longlong
     launch_fn = lib.sweep_epoch_launch
     launch_fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 5
-                          + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                          + [ctypes.c_void_p])
+                          + [ctypes.c_int] * 4 + [ctypes.c_longlong]
+                          + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     launch_fn.restype = ctypes.c_int
     draws_fn = lib.sweep_epoch_draws
     draws_fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                           ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
                          + [ctypes.c_void_p] * 5)
     draws_fn.restype = ctypes.c_int
-    return shared, max_shared, launch_fn, draws_fn
-
-
-def shared_bytes(d: int, buf_len: int, engine: str, ring_shared: bool) -> int:
-    """Dynamic shared memory of one block (one row) of ``engine``."""
-    return int(_entries()[0](d, buf_len, ENGINE_CODES[engine], int(ring_shared)))
+    return max_shared, launch_fn, draws_fn
 
 
 def max_shared_bytes(device: torch.device) -> int:
     """The most dynamic shared memory a block may use on ``device``."""
-    return int(_entries()[1](device.index or 0))
+    return int(_entries()[0](device.index or 0))
 
 
 def launch(X, y, w, mu, keys, step, row_ints, ring, out, terms, loss, *,
            engine: str, total: int, buf_len: int, option: int, drop: bool,
-           l2: float, keep_p: float) -> int:
+           staged: bool, smem_bytes: int, l2: float, keep_p: float) -> int:
     """out [C, d] = one epoch of ``total`` updates from w [C, d] and loss
     [C] = f(out); ``ring`` is a [C, buf_len, d] buffer or None (ring in
-    shared memory), ``terms`` a [C, n] float64 buffer for the loss's
-    per-sample terms, ``mu`` None for Hogwild!."""
+    shared memory), ``staged`` takes the sampled rows through shared-memory
+    stages (else through L2 prefetches), ``smem_bytes`` is the block's
+    dynamic shared memory, which the kernel checks against its own layout;
+    ``terms`` is a [C, n] float64 buffer for the loss's per-sample terms,
+    ``mu`` None for Hogwild!."""
     n, d = X.shape
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    return _entries()[2](
+    return _entries()[1](
         X.data_ptr(), y.data_ptr(), w.data_ptr(),
         None if mu is None else mu.data_ptr(), keys.data_ptr(),
         step.data_ptr(), row_ints.data_ptr(),
         None if ring is None else ring.data_ptr(), out.data_ptr(),
         terms.data_ptr(), loss.data_ptr(), n, d, w.shape[0], total, buf_len,
-        ENGINE_CODES[engine], option, int(drop), l2, keep_p, stream)
+        ENGINE_CODES[engine], option, int(drop), int(staged), smem_bytes,
+        l2, keep_p, stream)
 
 
 def draws(key, n: int, d: int, tau: int, delay_id: int, steps: int, idx, age,
@@ -72,6 +67,6 @@ def draws(key, n: int, d: int, tau: int, delay_id: int, steps: int, idx, age,
     """The kernel's draws for one key [2]: idx, age [steps] int32 and the
     reader and drop uniforms [steps, d] float32."""
     stream = torch.cuda.current_stream(key.device).cuda_stream
-    return _entries()[3](key.data_ptr(), n, d, tau, delay_id, steps,
+    return _entries()[2](key.data_ptr(), n, d, tau, delay_id, steps,
                          idx.data_ptr(), age.data_ptr(), read_u.data_ptr(),
                          drop_u.data_ptr(), stream)

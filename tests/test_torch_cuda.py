@@ -22,6 +22,7 @@ from repro_torch.kernels.logreg_grad.ref import logreg_grad_ref
 from repro_torch.kernels.svrg_update.ops import svrg_update
 from repro_torch.kernels.svrg_update.ref import svrg_update_ref
 from repro_torch.kernels.sweep_epoch import kernel
+from repro_torch.kernels.sweep_epoch import ops as sweep_ops
 from repro_torch.kernels.sweep_epoch.ops import kernel_draws, sweep_epoch
 from repro_torch.kernels.sweep_epoch.ref import draws, sweep_epoch_ref
 
@@ -130,8 +131,8 @@ def test_sweep_epoch_hogwild_ring_stays_shared_longer(gen):
     d = 1000
     limit = kernel.max_shared_bytes(torch.device("cuda"))
     buf_len = max(b for b in range(1, 200)
-                  if kernel.shared_bytes(d, b, "hogwild", True) <= limit)
-    assert kernel.shared_bytes(d, buf_len, "asysvrg", True) > limit
+                  if sweep_ops.shared_bytes(d, b, "hogwild", "shared") <= limit)
+    assert sweep_ops.shared_bytes(d, buf_len, "asysvrg", "shared") > limit
     X, y, w, _, keys = _sweep_inputs(gen, 300, d, 2)
     step = torch.tensor([0.5, 0.3], device="cuda")
     tau = buf_len - 1
@@ -144,6 +145,111 @@ def test_sweep_epoch_hogwild_ring_stays_shared_longer(gen):
     want, want_loss = sweep_epoch_ref(*args, **kw)
     assert float((out - want).abs().max()) <= 1e-5
     torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=0.0)
+
+
+def _sweep_vs_plain(gen, *, n, d, engine, total, tau=(7, 7, 7), option=2,
+                    placement=None, exact=False):
+    """One ``sweep_epoch`` launch (at ``placement``, or the one chosen by
+    size) against the plain version, every reader and delay kind with
+    drops: iterate within 1e-5 and loss within rtol 1e-6, or with
+    ``exact`` equal bits. Returns the placement that ran."""
+    C = len(tau)
+    X, y, w, mu, keys = _sweep_inputs(gen, n, d, C)
+    step = torch.tensor([0.5, 0.3, 0.2][:C], device="cuda")
+    args = (X, y, 1e-3, w, mu if engine == "asysvrg" else None, keys, step,
+            list(tau), [0, 1, 2][:C], [2, 1, 2][:C])
+    kw = dict(engine=engine, total=total, buf_len=max(tau) + 1,
+              option=option, drop_prob=0.1)
+    before = dict(sweep_epoch.placements)
+    out, loss = sweep_epoch(*args, **kw, placement=placement)
+    torch.cuda.synchronize()
+    used = [k for k, v in sweep_epoch.placements.items() if v != before[k]]
+    assert len(used) == 1 and placement in (None, used[0])
+    want, want_loss = sweep_epoch_ref(*args, **kw)
+    assert bool(torch.isfinite(out).all())
+    if exact:
+        assert torch.equal(out, want) and torch.equal(loss, want_loss)
+    assert float((out - want).abs().max()) <= 1e-5
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=0.0)
+    return used[0]
+
+
+@pytest.mark.parametrize("total", [1, 2, 3, 4, 5, 9])
+@pytest.mark.parametrize("engine", ["asysvrg", "hogwild"])
+def test_sweep_epoch_short_epochs(gen, total, engine):
+    """Epochs shorter than, as long as and past the queue (S = 2)."""
+    assert _sweep_vs_plain(gen, n=300, d=33, engine=engine,
+                           total=total) == "shared"
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("d", [33, 2048])
+def test_sweep_epoch_same_row_in_consecutive_stages(gen, n, d):
+    """With n = 1 every step stages the same row, with n = 3 most do."""
+    _sweep_vs_plain(gen, n=n, d=d, engine="asysvrg", total=64)
+
+
+@pytest.mark.parametrize("engine,option", [("asysvrg", 2), ("asysvrg", 1),
+                                           ("hogwild", 0)])
+def test_sweep_epoch_rcv1_width_equals_plain_bits(gen, engine, option):
+    """d = 2048 at τ = 7 (rcv1's shape): the kernel's arithmetic is the
+    plain version's, operation for operation, so iterate and loss are
+    equal bits."""
+    assert _sweep_vs_plain(gen, n=500, d=2048, engine=engine, total=128,
+                           option=option, exact=True) == "shared"
+
+
+@pytest.mark.parametrize("placement", list(sweep_ops.PLACEMENTS))
+@pytest.mark.parametrize("d", [33, 2048])
+@pytest.mark.parametrize("engine", ["asysvrg", "hogwild"])
+def test_sweep_epoch_every_placement_matches_plain(gen, engine, d, placement):
+    """Each placement, named, whatever the size would pick: unaligned
+    (d = 33) and aligned rows, epochs of 1 and 37 steps."""
+    for total in (1, 37):
+        _sweep_vs_plain(gen, n=300, d=d, engine=engine, total=total,
+                        placement=placement)
+
+
+@pytest.mark.parametrize("engine", ["asysvrg", "hogwild"])
+def test_sweep_epoch_news20_width_placements(gen, engine):
+    """At news20's width (d = 4096, buf_len 10) the placement chosen by
+    size, then every placement that fits the block, at a short epoch."""
+    limit = kernel.max_shared_bytes(torch.device("cuda"))
+    tau = (9, 9, 9)
+    chosen = _sweep_vs_plain(gen, n=400, d=4096, engine=engine, total=48,
+                             tau=tau)
+    assert chosen == sweep_ops.choose_placement(4096, 10, engine, limit)
+    for placement in sweep_ops.PLACEMENTS:
+        if sweep_ops.shared_bytes(4096, 10, engine, placement) <= limit:
+            _sweep_vs_plain(gen, n=400, d=4096, engine=engine, total=48,
+                            tau=tau, placement=placement)
+
+
+def test_sweep_epoch_launch_refuses_a_block_too_large(gen):
+    X, y, w, mu, keys = _sweep_inputs(gen, 100, 4096, 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sweep_epoch(X, y, 1e-3, w, mu, keys,
+                    torch.tensor([0.5], device="cuda"), [9], [0], [1],
+                    engine="asysvrg", total=8, buf_len=10, option=2,
+                    drop_prob=0.0, placement="shared")
+
+
+def test_sweep_epoch_kernel_refuses_bytes_off_its_layout(gen):
+    """The C entry checks the caller's shared-memory size against its own
+    layout: bytes off by a granule, or those of another placement."""
+    X, y, w, mu, keys = _sweep_inputs(gen, 100, 64, 1)
+    row_ints = torch.tensor([[3], [0], [1]], dtype=torch.int32, device="cuda")
+    out, loss = torch.empty_like(w), torch.empty(1, device="cuda")
+    terms = torch.empty((1, 100), dtype=torch.float64, device="cuda")
+    nbytes = sweep_ops.shared_bytes(64, 4, "asysvrg", "shared")
+    for staged, smem in ((True, nbytes + 16), (True, nbytes - 16),
+                         (False, nbytes)):
+        rc = kernel.launch(X, y, w, mu, keys, torch.tensor([0.5], device="cuda"),
+                           row_ints, None, out, terms, loss, engine="asysvrg",
+                           total=8, buf_len=4, option=2, drop=False,
+                           staged=staged, smem_bytes=smem,
+                           l2=1e-3, keep_p=1.0)
+        assert rc != 0
 
 
 @pytest.mark.parametrize("n,d", [(97, 33), (20242, 1000)])

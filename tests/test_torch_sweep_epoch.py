@@ -23,8 +23,12 @@ from repro_torch import prng
 from repro_torch.core import sweep as psw
 from repro_torch.core.objective import LogisticRegression, Objective
 from repro_torch.kernels.sweep_epoch import fused_group_fn, sweep_epoch
+from repro_torch.kernels.sweep_epoch.ops import (PLACEMENTS, STAGES,
+                                                 choose_placement,
+                                                 shared_bytes)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
+H100_SHARED = 232_448  # an H100 block's dynamic shared memory (opt-in)
 TOL_BATCHED = dict(rtol=1e-6, atol=1e-7)
 SCHEMES = ("consistent", "inconsistent", "unlock")
 
@@ -162,6 +166,25 @@ def test_sweep_epoch_plain_matches_jax_epoch(objs, scheme, engine, option):
     np.testing.assert_allclose(loss, want_loss, **TOL)
 
 
+@pytest.mark.parametrize("placement", list(PLACEMENTS))
+def test_sweep_epoch_named_placement_on_cpu_runs_plain(objs, placement):
+    """A placement is where the CUDA kernel keeps its state: on CPU tensors
+    a named one runs the plain version, bit for bit, and counts no
+    launch."""
+    _, po = objs
+    w = 0.1 * torch.randn((2, po.p), generator=torch.Generator().manual_seed(1))
+    args = (po.X, po.y, po.l2, w, 0.01 * torch.ones_like(w),
+            prng.keys_from_seeds([3, 4]), torch.tensor([0.5, 0.4]), [3, 1],
+            [2, 1], [2, 1])
+    kw = dict(engine="asysvrg", total=12, buf_len=4, option=2, drop_prob=0.1)
+    launches, placements = sweep_epoch.launches, dict(sweep_epoch.placements)
+    named = sweep_epoch(*args, **kw, placement=placement)
+    plain = sweep_epoch(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(named, plain))
+    assert sweep_epoch.launches == launches
+    assert sweep_epoch.placements == placements
+
+
 def test_sweep_epoch_rows_never_mix(objs):
     """Three rows in one call equal each row in a call of its own, iterate
     and loss."""
@@ -231,7 +254,7 @@ def test_fused_mode_takes_logistic_regression_only():
 
 @pytest.mark.parametrize("kwargs", [dict(engine="sgd"), dict(buf_len=2),
                                     dict(option=3), dict(drop_prob=1.0),
-                                    dict(total=0)])
+                                    dict(total=0), dict(placement="l2")])
 def test_sweep_epoch_rejects_bad_arguments(objs, kwargs):
     _, po = objs
     w = torch.zeros((1, po.p))
@@ -255,3 +278,51 @@ def test_fused_group_fn_calling_convention(objs):
                       [3, 1], [2, 0], [1, 1], [2, 1], w0)
     assert w_fin.shape == (2, po.p) and hist.shape == (2, 3)
     assert hist[1, 2] == hist[1, 1] and hist[0, 2] < hist[0, 1] < hist[0, 0]
+
+
+@pytest.mark.parametrize("engine", ["asysvrg", "hogwild"])
+@pytest.mark.parametrize("d,buf_len", [(33, 4), (1000, 61), (2048, 8),
+                                       (2048, 41), (4096, 10), (12000, 8)])
+def test_sweep_epoch_block_bytes_and_placement(d, buf_len, engine):
+    """The block's shared memory from unaligned rows (d = 33) through rcv1
+    and news20 widths to one where only the L2 placement fits (a stage is
+    the row's 16-byte-aligned cover plus one granule), and the placement:
+    the first of PLACEMENTS that fits an H100 block."""
+    vectors = 4 if engine == "asysvrg" else 1
+    head = 512 + 64 * STAGES
+    staged = STAGES * (16 * -(-d // 4) + 16)
+    want = {"shared": head + staged + (vectors + buf_len) * 4 * d,
+            "global": head + staged + vectors * 4 * d,
+            "global_l2": head + vectors * 4 * d}
+    got = {p: shared_bytes(d, buf_len, engine, p) for p in PLACEMENTS}
+    assert got == want
+    fits = [p for p in PLACEMENTS if want[p] <= H100_SHARED]
+    assert choose_placement(d, buf_len, engine, H100_SHARED) == fits[0]
+
+
+def test_sweep_epoch_placements_at_the_paths_widths():
+    """rcv1 (τ = 7) stages its rows beside the ring in shared memory; at
+    news20 (buf_len 10) an AsySVRG row's state alone takes 229,888 bytes,
+    so no stage fits beside a shared ring and the ring moves to device
+    memory."""
+    assert shared_bytes(2048, 8, "asysvrg", "shared") == \
+        512 + STAGES * 64 + STAGES * 8208 + 12 * 8192
+    for engine in ("asysvrg", "hogwild"):
+        assert choose_placement(2048, 8, engine, H100_SHARED) == "shared"
+    assert (shared_bytes(4096, 10, "asysvrg", "shared")
+            - STAGES * (64 + 16400)) == 229_888
+    assert choose_placement(4096, 10, "asysvrg", H100_SHARED) == "global"
+    with pytest.raises(ValueError, match="more shared memory"):
+        choose_placement(20_000, 8, "asysvrg", H100_SHARED)
+    with pytest.raises(ValueError, match="placement"):
+        shared_bytes(2048, 8, "asysvrg", "registers")
+
+
+def test_sweep_epoch_stage_covers_any_row():
+    """A stage holds the 16-byte-aligned span that covers a row at each
+    4-byte offset a float32 row can have: round_up(offset + 4 d, 16)."""
+    for d in range(1, 70):
+        stage = (shared_bytes(d, 1, "hogwild", "global")
+                 - shared_bytes(d, 1, "hogwild", "global_l2")) // STAGES
+        assert stage % 16 == 0
+        assert all(-(-(r + 4 * d) // 16) * 16 <= stage for r in (0, 4, 8, 12))

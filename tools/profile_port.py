@@ -2,8 +2,9 @@
 """Where the port's AsySVRG inner loop and its serve path spend their time
 on the card.
 
-    python3 tools/profile_port.py          # everything below
-    python3 tools/profile_port.py serve    # the serve path only
+    python3 tools/profile_port.py              # everything below
+    python3 tools/profile_port.py serve        # the serve path only
+    python3 tools/profile_port.py sweep_epoch  # the fused engine and K3 only
 
 At the rcv1 width (n = 20242, p = 2048; data from
 `repro_torch.data.libsvm.make_synthetic_libsvm("rcv1")`):
@@ -19,11 +20,16 @@ At the rcv1 width (n = 20242, p = 2048; data from
     ``engine_mode="fused"`` over the 5 rows `chip_smoke.py` runs (4-row
     AsySVRG/SVRG group + 1 Hogwild! row), the same two ways;
   * the `sweep_epoch` kernel alone (CUDA events, median of 3 launches of
-    4096 inner updates): per scheme and engine on one row, by group width
-    (1 to 528 rows), at the news20 width (d = 4096) and with the ring in
-    device memory (τ = 40). Each launch ends with the rows' loss, two more
-    kernels over all SMs that read X once for all rows; a launch of one
-    update times that loss pass;
+    4096 inner updates): `chip_smoke.py`'s three cases (the 4-row rcv1
+    AsySVRG group, the Hogwild! row, the 3-row news20 group), per scheme
+    and engine on one row, by group width (1 to 528 rows), at the news20
+    width (d = 4096) and with the ring in device memory (τ = 40), each at
+    the placement chosen by size; then `chip_smoke.py`'s three cases and
+    the 264-row group at every placement that fits (the queue depth S is
+    `kStages` in `csrc/sweep_epoch.cu`: edit it and run again to compare
+    depths). Each launch
+    ends with the rows' loss, two more kernels over all SMs that read X
+    once for all rows; a launch of one update times that loss pass;
   * the serve path at gemma3-4b's full width (batch 4, prompt 2048, bf16):
     one prefill and 4 decode steps, each without and under the profiler;
     then 5 prefills in a row on a fresh session, each timed by the host
@@ -163,41 +169,74 @@ def _kernel_ms(fn, reps: int = 3) -> float:
 
 
 def profile_sweep_epoch(ds, news20, steps: int = 4096):
-    """The sweep_epoch kernel alone: µs per inner update by case."""
+    """The sweep_epoch kernel alone: µs per inner update by case, through
+    `sweep_epoch` (the placement chosen by size); then some of the same
+    cases at each placement that fits."""
     from repro_torch import prng
+    from repro_torch.kernels.sweep_epoch import kernel, ops
     from repro_torch.kernels.sweep_epoch.ops import sweep_epoch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     data = {"rcv1": (*ds.as_torch("cuda"), ds.l2_reg),
             "news20": (*news20.as_torch("cuda"), news20.l2_reg)}
-    # (case, data, engine, rows, tau, scheme id, delay id, drop_prob)
-    cases = [("consistent", "rcv1", "asysvrg", 1, 7, 0, 1, 0.0),
-             ("consistent_tau0", "rcv1", "asysvrg", 1, 0, 0, 0, 0.0),
-             ("inconsistent", "rcv1", "asysvrg", 1, 7, 1, 1, 0.0),
-             ("unlock", "rcv1", "asysvrg", 1, 7, 2, 1, 0.0),
-             ("unlock_drop", "rcv1", "asysvrg", 1, 7, 2, 1, 0.02),
-             ("hogwild_unlock_drop", "rcv1", "hogwild", 1, 7, 2, 1, 0.02),
-             ("news20_inconsistent", "news20", "asysvrg", 1, 9, 1, 1, 0.0),
-             ("global_ring_unlock_tau40", "rcv1", "asysvrg", 1, 40, 2, 2, 0.0)]
-    cases += [(f"inconsistent_{C}_rows", "rcv1", "asysvrg", C, 7, 1, 1, 0.0)
-              for C in (4, 32, 132, 264, 528)]
-    for name, which, engine, C, tau, sid, did, drop in cases:
+    # (case, data, engine, taus, scheme ids, delay ids, drop_prob); the
+    # first three are chip_smoke.py's: its 4-row rcv1 group, its Hogwild!
+    # row, its news20 group
+    cases = [("rcv1_asysvrg_4rows", "rcv1", "asysvrg", [7, 7, 7, 0],
+              [0, 1, 2, 0], [1, 1, 1, 0], 0.02),
+             ("rcv1_hogwild_unlock", "rcv1", "hogwild", [7], [2], [1], 0.02),
+             ("news20_asysvrg_3rows", "news20", "asysvrg", [9, 9, 9],
+              [0, 1, 2], [1, 1, 2], 0.02),
+             ("consistent", "rcv1", "asysvrg", [7], [0], [1], 0.0),
+             ("consistent_tau0", "rcv1", "asysvrg", [0], [0], [0], 0.0),
+             ("inconsistent", "rcv1", "asysvrg", [7], [1], [1], 0.0),
+             ("unlock", "rcv1", "asysvrg", [7], [2], [1], 0.0),
+             ("unlock_drop", "rcv1", "asysvrg", [7], [2], [1], 0.02),
+             ("news20_inconsistent", "news20", "asysvrg", [9], [1], [1], 0.0),
+             ("global_ring_unlock_tau40", "rcv1", "asysvrg", [40], [2], [2],
+              0.0)]
+    cases += [(f"inconsistent_{C}_rows", "rcv1", "asysvrg", [7] * C, [1] * C,
+               [1] * C, 0.0) for C in (4, 32, 132, 264, 528)]
+
+    def inputs(which, engine, taus, sids, dids, drop):
         X, y, l2 = data[which]
-        d = X.shape[1]
+        C, d = len(taus), X.shape[1]
         w = 0.1 * torch.randn((C, d), generator=gen, device="cuda")
         mu = 1e-3 * torch.randn((C, d), generator=gen, device="cuda")
-        keys = prng.keys_from_seeds(range(C), "cuda")
-        step = torch.full((C,), 2.0, device="cuda")
+        args = (X, y, l2, w, mu if engine == "asysvrg" else None,
+                prng.keys_from_seeds(range(C), "cuda"),
+                torch.full((C,), 2.0, device="cuda"), taus, sids, dids)
+        kw = dict(engine=engine, total=steps, buf_len=max(8, max(taus) + 1),
+                  option=2, drop_prob=drop)
+        return args, kw
+
+    for name, which, engine, taus, sids, dids, drop in cases:
+        args, kw = inputs(which, engine, taus, sids, dids, drop)
         before = dict(sweep_epoch.placements)
-        ms = _kernel_ms(lambda: sweep_epoch(
-            X, y, l2, w, mu if engine == "asysvrg" else None, keys, step,
-            [tau] * C, [sid] * C, [did] * C, engine=engine, total=steps,
-            buf_len=max(8, tau + 1), option=2, drop_prob=drop))
-        ring = [k for k, v in sweep_epoch.placements.items() if v != before[k]]
+        ms = _kernel_ms(lambda: sweep_epoch(*args, **kw))
+        placement = [k for k, v in sweep_epoch.placements.items()
+                     if v != before[k]]
         print(json.dumps({"kernel": "sweep_epoch", "case": name, "data": which,
-                          "d": d, "engine": engine, "rows": C, "tau": tau,
-                          "updates": steps, "ring": ring, "ms": ms,
+                          "d": args[0].shape[1], "engine": engine,
+                          "rows": len(taus), "tau": taus[0], "updates": steps,
+                          "placement": placement, "ms": ms,
                           "us_per_update": 1e3 * ms / steps}), flush=True)
+    limit = kernel.max_shared_bytes(torch.device("cuda"))
+    design = cases[:3] + [c for c in cases if c[0] == "inconsistent_264_rows"]
+    for name, which, engine, taus, sids, dids, drop in design:
+        args, kw = inputs(which, engine, taus, sids, dids, drop)
+        d, buf_len = args[0].shape[1], kw["buf_len"]
+        for placement in ops.PLACEMENTS:
+            nbytes = ops.shared_bytes(d, buf_len, engine, placement)
+            if nbytes > limit:
+                continue
+            ms = _kernel_ms(lambda: sweep_epoch(*args, **kw,
+                                                placement=placement))
+            print(json.dumps({
+                "kernel": "sweep_epoch", "case": name,
+                "placement": placement, "stages": ops.STAGES,
+                "shared_bytes": nbytes, "updates": steps, "ms": ms,
+                "us_per_update": 1e3 * ms / steps}), flush=True)
     # one update: the launch is then its loss pass, one read of X for all rows
     for which, C in (("rcv1", 1), ("rcv1", 4), ("news20", 1)):
         X, y, l2 = data[which]
@@ -309,6 +348,10 @@ def main(argv=None) -> int:
         return 0
     ds = make_synthetic_libsvm("rcv1", scale=1.0)
     obj = LogisticRegression(ds.X, ds.y, ds.l2_reg)
+    if argv == ["sweep_epoch"]:
+        print(json.dumps(profile_fused(obj)), flush=True)
+        profile_sweep_epoch(ds, make_synthetic_libsvm("news20", scale=1.0))
+        return 0
     for rows in (1, 4):
         print(json.dumps(profile(obj, rows, STEPS)), flush=True)
     print(json.dumps(profile_fused(obj)), flush=True)
