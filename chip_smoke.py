@@ -5,8 +5,11 @@
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc
 (sm_90a), all at once, and holds each kernel against its plain torch
-version on the card at the main path's shapes: `svrg_update`, `logreg_grad`
-and `sweep_epoch` (rcv1 and news20 widths, each case at every placement of
+version on the card at the main path's shapes: `svrg_update` (bit for bit,
+bare and with the ring store and running sum of the engine's step in its
+epilogue), `logreg_grad` (rcv1 width with 1, 3, 4, 5 and 9 weight rows,
+news20 width with 4; timed beside the two-matmul yardstick) and
+`sweep_epoch` (rcv1 and news20 widths, each case at every placement of
 the ring and the staged rows that fits, bit-equal at the main path's shape;
 its in-kernel generator bit for bit against `repro_torch.prng`), and
 `flash_attention` at gemma3-4b's prefill shapes (windows 0 and 1024, bf16
@@ -14,13 +17,15 @@ on the tensor-core kernel and float32 on the CUDA-core one, a ragged
 length, GQA 16:1), timed beside its plain version, the CUDA-core kernel on
 the same bf16 inputs and `scaled_dot_product_attention`; the tensor-core
 library's SASS must hold `HGMMA` and `UTMALDG`, the sweep library's the bulk
-copy, the L2 prefetch and the mbarrier wait, with no register spills. It
+copy, the L2 prefetch and the mbarrier wait, the gradient library's the bulk
+copy and the mbarrier wait, the last two with no register spills. It
 then drives each path through the entry
 points a user calls, with the launch counters set to 0 just before and read
 just after; the paper's paths at the full width of the rcv1 configuration
 (n = 20242, p = 2048):
 
-  * `run_asysvrg`: every inner update through `svrg_update`, every snapshot
+  * `run_asysvrg`: every inner update through one `svrg_update` launch
+    (the update, its ring slot and the running sum), every snapshot
     gradient through `logreg_grad`; one card epoch against the CPU path;
   * `run_sweep` (batched): the same kernels, 5 rows in 2 groups;
   * `run_sweep` with ``engine_mode="fused"``: one `sweep_epoch` launch per
@@ -132,26 +137,34 @@ def phase_device():
     # waits
     counts = sass_counts("flash_attention_wgmma", ("HGMMA", "UTMALDG"))
     k3_counts = sass_counts("sweep_epoch", K3_SASS)
+    k2_counts = sass_counts("logreg_grad", K2_SASS)
     emit(phase="device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
-         flash_attention_wgmma_sass=counts, sweep_epoch_sass=k3_counts)
+         flash_attention_wgmma_sass=counts, sweep_epoch_sass=k3_counts,
+         logreg_grad_sass=k2_counts)
     if not all(counts.values()):
         raise AssertionError(f"flash_attention_wgmma SASS lacks wgmma or TMA: "
                              f"{counts}")
     if not all(k3_counts.values()):
         raise AssertionError(f"sweep_epoch SASS lacks bulk copies, L2 "
                              f"prefetches or mbarrier waits: {k3_counts}")
-    spills = [ln for ln in ptxas["sweep_epoch"]
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
-              not in ln]
-    if spills:
-        raise AssertionError(f"sweep_epoch spills registers: {spills}")
+    if not all(k2_counts.values()):
+        raise AssertionError(f"logreg_grad SASS lacks bulk copies or mbarrier "
+                             f"waits: {k2_counts}")
+    for name in ("sweep_epoch", "logreg_grad"):
+        spills = [ln for ln in ptxas[name]
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                  "loads" not in ln]
+        if spills:
+            raise AssertionError(f"{name} spills registers: {spills}")
 
 
 # SASS of the sweep kernel's pipeline: the bulk copy of a row into shared
-# memory, the bulk prefetch into L2, the mbarrier's try-wait
+# memory, the bulk prefetch into L2, the mbarrier's try-wait; of the
+# gradient's: the bulk copy of a stripe and the mbarrier's try-wait
 K3_SASS = ("UBLKCP", "UBLKPF", "SYNCS.PHASECHK")
+K2_SASS = ("UBLKCP", "SYNCS.PHASECHK")
 
 
 def sass_counts(name, opcodes):
@@ -167,74 +180,130 @@ def sass_counts(name, opcodes):
 
 def phase_kernels(ds):
     """Each kernel against its plain version at the main path's shapes."""
-    from repro_torch.kernels.logreg_grad.ops import logreg_grad
-    from repro_torch.kernels.logreg_grad.ref import logreg_grad_ref
-    from repro_torch.kernels.svrg_update.ops import svrg_update
-    from repro_torch.kernels.svrg_update.ref import svrg_update_ref
-
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    d = ds.p
-    report = {}
-    for C in (1, 4):
-        for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
-            u, g, g0, gf = (torch.randn((C, d), generator=gen, device="cuda")
-                            .to(dtype) for _ in range(4))
-            lr = 0.1 * torch.rand(C, generator=gen, device="cuda")
-            out = svrg_update(u, g, g0, gf, lr)
-            ref = svrg_update_ref(u, g, g0, gf, lr)
-            err = float((out.float() - ref.float()).abs().max())
-            bits_equal = bool(torch.equal(out, ref))
-            size = torch.finfo(dtype).bits // 8
-            bnd, by = bound_ms(5 * C * d * size + 4 * C, 4 * C * d)
-            rec = dict(kernel="svrg_update", rows=C, d=d,
-                       dtype=str(dtype).replace("torch.", ""), tol=tol,
-                       max_abs_err=err, bits_equal=bits_equal,
-                       ms=median_ms(lambda: svrg_update(u, g, g0, gf, lr),
-                                    inner=200),
-                       plain_ms=median_ms(
-                           lambda: svrg_update_ref(u, g, g0, gf, lr), inner=200),
-                       bound_ms=bnd, bound_by=by)
-            emit(phase="kernels_vs_plain", **rec)
-            if not err <= tol:
-                raise AssertionError(f"svrg_update disagrees: {rec}")
-            if C == 1 and dtype == torch.float32:
-                report["svrg_update"] = rec
-
-    X, y = ds.as_torch("cuda")
-    n, p = X.shape
-    l2 = ds.l2_reg
-    singles = {}
-    for C in (1, 4):
-        W = 0.1 * torch.randn((C, p), generator=gen, device="cuda")
-        G = logreg_grad(X, y, W, l2)
-        R = logreg_grad_ref(X, y, W, l2)
-        err = float((G - R).abs().max())
-        close = bool(torch.allclose(G, R, rtol=1e-5, atol=1e-6))
-        row0 = logreg_grad(X, y, W[:1].contiguous(), l2)
-        batch_independent = bool(torch.equal(G[:1], row0))
-        bnd, by = bound_ms(4 * (n * p + n + 2 * C * p),
-                           C * (4 * n * p + 6 * n + 2 * p))
-        rec = dict(kernel="logreg_grad", rows=C, n=n, p=p, rtol=1e-5, atol=1e-6,
-                   max_abs_err=err, allclose=close,
-                   batch_independent=batch_independent,
-                   ms=median_ms(lambda: logreg_grad(X, y, W, l2), inner=10),
-                   plain_ms=median_ms(lambda: logreg_grad_ref(X, y, W, l2),
-                                      reps=5, inner=3),
-                   matmul_yardstick_ms=median_ms(lambda: X.T @ (X @ W.T),
-                                                 inner=10),
-                   bound_ms=bnd, bound_by=by)
-        emit(phase="kernels_vs_plain", **rec)
-        if not close or not batch_independent:
-            raise AssertionError(f"logreg_grad disagrees: {rec}")
-        singles[C] = rec
-    report["logreg_grad"] = singles[1]
+    report = {"svrg_update": svrg_update_vs_plain(ds, gen)}
+    report["logreg_grad"] = logreg_grad_vs_plain(ds, gen)
     report["sweep_epoch"] = sweep_epoch_vs_plain(ds, gen)
     check_draws(ds)
     report["flash_attention"] = flash_attention_vs_plain(gen)
     emit(phase="kernels_vs_plain_done", kernel_names=sorted(report),
          seconds=time.perf_counter() - t0)
     return report
+
+
+RING_LEN = THREADS    # the engine's ring at tau = THREADS - 1
+
+
+def svrg_update_vs_plain(ds, gen):
+    """svrg_update against its plain version, bit for bit, at the main
+    path's shapes (1 and 4 rows of d = p; float32 and bf16): the bare update
+    and the main path's call, which also stores the result into its ring
+    slot and adds it to the running sum (`_epoch_core`, option 2). Both are
+    timed beside the plain version; the main path's call at 1 row float32
+    is the kernel's record."""
+    from repro_torch.kernels.svrg_update.ops import svrg_update
+    from repro_torch.kernels.svrg_update.ref import svrg_update_ref
+
+    d = ds.p
+    record = None
+    for C in (1, 4):
+        for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
+            u, g, g0, gf = (torch.randn((C, d), generator=gen, device="cuda")
+                            .to(dtype) for _ in range(4))
+            lr = 0.1 * torch.rand(C, generator=gen, device="cuda")
+            slot = torch.randint(0, RING_LEN, (C,), generator=gen,
+                                 device="cuda")
+            ring0 = torch.randn((C, RING_LEN, d), generator=gen,
+                                device="cuda").to(dtype)
+            acc0 = torch.randn((C, d), generator=gen, device="cuda").to(dtype)
+            outs = {}
+            for name, fn in (("kernel", svrg_update), ("plain", svrg_update_ref)):
+                ring, acc = ring0.clone(), acc0.clone()
+                outs[name] = (fn(u, g, g0, gf, lr), ring, acc,
+                              fn(u, g, g0, gf, lr, ring=ring, slot=slot, acc=acc))
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(outs["kernel"], outs["plain"]))
+            bits_equal = all(bool(torch.equal(a, b))
+                             for a, b in zip(outs["kernel"], outs["plain"]))
+            ring, acc = ring0.clone(), acc0.clone()
+            size = torch.finfo(dtype).bits // 8
+            # the main path's call: u, g, g0, gf and acc read, out, the ring
+            # row and acc written (+ lr and slot); 5 flops an element
+            bnd, by = bound_ms(8 * C * d * size + 12 * C, 5 * C * d)
+            bare_bnd, _ = bound_ms(5 * C * d * size + 4 * C, 4 * C * d)
+            rec = dict(kernel="svrg_update", rows=C, d=d,
+                       dtype=str(dtype).replace("torch.", ""), tol=tol,
+                       ring_len=RING_LEN, max_abs_err=err, bits_equal=bits_equal,
+                       ms=median_ms(lambda: svrg_update(
+                           u, g, g0, gf, lr, ring=ring, slot=slot, acc=acc),
+                           inner=200),
+                       plain_ms=median_ms(lambda: svrg_update_ref(
+                           u, g, g0, gf, lr, ring=ring, slot=slot, acc=acc),
+                           inner=200),
+                       bound_ms=bnd, bound_by=by,
+                       bare_ms=median_ms(lambda: svrg_update(u, g, g0, gf, lr),
+                                         inner=200),
+                       bare_plain_ms=median_ms(
+                           lambda: svrg_update_ref(u, g, g0, gf, lr), inner=200),
+                       bare_bound_ms=bare_bnd, library_ms=None)
+            emit(phase="kernels_vs_plain", **rec)
+            if not (err <= tol and bits_equal):
+                raise AssertionError(f"svrg_update disagrees: {rec}")
+            if C == 1 and dtype == torch.float32:
+                record = rec
+    return record
+
+
+def logreg_grad_vs_plain(ds, gen):
+    """logreg_grad against its plain version (rtol 1e-5, atol 1e-6), each
+    row bit-equal to the row alone: at rcv1 with 1 and 4 rows, timed beside
+    the plain version and the two-matmul yardstick X.T @ (X @ W.T) (no
+    single PyTorch call computes it; the port never calls it); then across
+    the chunk edge (3, 5 and 9 rows) and at news20 width (4 rows, timed).
+    The 1-row rcv1 case is the kernel's record."""
+    from repro_torch.data.libsvm import make_synthetic_libsvm
+    from repro_torch.kernels.logreg_grad.ops import logreg_grad
+    from repro_torch.kernels.logreg_grad.ref import logreg_grad_ref
+
+    news20 = make_synthetic_libsvm("news20", scale=1.0)
+    cases = [("rcv1", ds, C, C in (1, 4)) for C in (1, 4, 3, 5, 9)]
+    cases.append(("news20", news20, 4, True))
+    record = None
+    for name, data, C, timed in cases:
+        X, y = data.as_torch("cuda")
+        n, p = X.shape
+        l2 = data.l2_reg
+        W = 0.1 * torch.randn((C, p), generator=gen, device="cuda")
+        G = logreg_grad(X, y, W, l2)
+        R = logreg_grad_ref(X, y, W, l2)
+        err = float((G - R).abs().max())
+        close = bool(torch.allclose(G, R, rtol=1e-5, atol=1e-6))
+        batch_independent = all(
+            bool(torch.equal(G[c:c + 1], logreg_grad(X, y, W[c:c + 1]
+                                                     .contiguous(), l2)))
+            for c in range(C))
+        # bytes: X, y and W read once, G written once; operations: a margin
+        # and a gradient product per element and weight row, the sigmoid
+        bnd, by = bound_ms(4 * (n * p + n + 2 * C * p),
+                           C * (4 * n * p + 6 * n + 2 * p))
+        rec = dict(kernel="logreg_grad", data=name, rows=C, n=n, p=p,
+                   rtol=1e-5, atol=1e-6, max_abs_err=err, allclose=close,
+                   batch_independent=batch_independent, bound_ms=bnd,
+                   bound_by=by, library_ms=None)
+        if timed:
+            rec.update(
+                ms=median_ms(lambda: logreg_grad(X, y, W, l2), inner=10),
+                plain_ms=median_ms(lambda: logreg_grad_ref(X, y, W, l2),
+                                   reps=5, inner=3),
+                yardstick_ms=median_ms(lambda: X.T @ (X @ W.T), inner=10))
+            rec["share_of_bound"] = bnd / rec["ms"]
+        emit(phase="kernels_vs_plain", **rec)
+        if not close or not batch_independent:
+            raise AssertionError(f"logreg_grad disagrees: {rec}")
+        if name == "rcv1" and C == 1:
+            record = rec
+    return record
 
 
 def sweep_epoch_vs_plain(ds, gen):
@@ -703,10 +772,10 @@ def greedy_steps(bundle, params, batch, cache_len: int, new_tokens: int):
 
     sess = ServeSession(bundle, params, cache_len)
     logits = [sess.prefill(batch)]
-    toks = [torch.argmax(logits[0], dim=-1)]
+    toks = [torch.argmax(logits[0], dim=-1).to(torch.int32)]
     for _ in range(new_tokens - 1):
         logits.append(sess.decode(toks[-1]))
-        toks.append(torch.argmax(logits[-1], dim=-1))
+        toks.append(torch.argmax(logits[-1], dim=-1).to(torch.int32))
     return logits, torch.stack(toks, dim=1)
 
 
@@ -750,12 +819,12 @@ def phase_serve(report):
     after_prefill = read_counts()
     prefill_routes = dict(gqa_flash.launches_by_route)
     finite = torch.isfinite(logits).all()
-    toks = [torch.argmax(logits, dim=-1)]
+    toks = [torch.argmax(logits, dim=-1).to(torch.int32)]
     t0 = time.perf_counter()
     for _ in range(SERVE_NEW - 1):
         logits = sess.decode(toks[-1])
         finite &= torch.isfinite(logits).all()
-        toks.append(torch.argmax(logits, dim=-1))
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     after_decode = read_counts()
@@ -802,6 +871,7 @@ def phase_serve(report):
         raise AssertionError(f"serve: flash launches {after_prefill} after "
                              f"prefill, {after_decode} after decode")
     if tuple(res["tokens"].shape) != (SERVE_BATCH, SERVE_NEW) \
+            or res["tokens"].dtype != torch.int32 \
             or not rec["stepwise_equals_generate"]:
         raise AssertionError("serve: generate and the stepped session differ")
     return counts
@@ -997,8 +1067,9 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms")})
-        if "kernel_route" in rec:
-            kernels[-1]["kernel_route"] = rec["kernel_route"]
+        for extra in ("kernel_route", "yardstick_ms", "bare_ms"):
+            if extra in rec:
+                kernels[-1][extra] = rec[extra]
     emit(phase="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

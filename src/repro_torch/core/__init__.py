@@ -9,6 +9,7 @@ from repro_torch.core.svrg import svrg_epoch, run_svrg, sweep_spec as svrg_sweep
 from repro_torch.core.asysvrg import (
     AsyRunResult,
     asysvrg_epoch,
+    make_delay_schedule,
     run_asysvrg,
 )
 from repro_torch.core.sweep import (
@@ -20,7 +21,7 @@ from repro_torch.core.sweep import (
     plan_sweep,
     run_sweep,
 )
-from repro_torch.core.hogwild import run_hogwild
+from repro_torch.core.hogwild import hogwild_epoch, run_hogwild
 
 __all__ = [
     "LogisticRegression",
@@ -35,11 +36,13 @@ __all__ = [
     "AsyRunResult",
     "asysvrg_epoch",
     "run_asysvrg",
+    "make_delay_schedule",
     "SweepSpec",
     "SweepResult",
     "SweepPlan",
     "make_grid",
     "plan_sweep",
     "run_sweep",
+    "hogwild_epoch",
     "run_hogwild",
 ]

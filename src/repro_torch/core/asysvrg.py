@@ -29,7 +29,8 @@ steps (`_delay_chunks`), so a chunk stays a few tens of MB. Only the schemes
 present draw, as under ``lax.switch``. Inside the loop nothing syncs with
 the host and nothing branches on a device value: every step is a fixed
 sequence of launches, the update itself being the fused ``svrg_update``
-kernel (`repro_torch.kernels.svrg_update`).
+kernel (`repro_torch.kernels.svrg_update`), which also writes the new
+iterate into its ring slot and adds it to the running sum.
 """
 from __future__ import annotations
 
@@ -189,9 +190,9 @@ def _epoch_core(obj: Objective, data, w, key, eta, tau, scheme_id, delay_id,
     C, dim = w.shape
     mu = obj.flat_full_grad(data, w)                    # snapshot pass
     u0 = w
-    rows = torch.arange(C, device=w.device)
     buffer = u0[:, None, :].repeat(1, buf_len, 1)       # slot m%(τ+1) = u_m
-    u, acc = u0, torch.zeros_like(u0)
+    u = u0
+    acc = torch.zeros_like(u0) if option == 2 else None  # option 1 never reads it
     for idx, slots, keep, wslot in _delay_chunks(
             key, obj.num_samples(data), tau, scheme_id, delay_id,
             total=total, dim=dim, drop_prob=drop_prob):
@@ -206,9 +207,9 @@ def _epoch_core(obj: Objective, data, w, key, eta, tau, scheme_id, delay_id,
             g = obj.flat_sample_grad(data, idx[j], u_read)
             if keep is not None:
                 g = g * keep[j]
-            u = svrg_update(u, g, g0s[j], gfs[j], eta)
-            buffer[rows, wslot[j]] = u
-            acc += u
+            # one launch: u_{m+1}, its ring slot and the running sum
+            u = svrg_update(u, g, g0s[j], gfs[j], eta, ring=buffer,
+                            slot=wslot[j], acc=acc)
     return u if option == 1 else acc / total
 
 
@@ -271,6 +272,26 @@ def _resolve_steps(obj: Objective, cfg: SVRGConfig):
     tau = cfg.tau if cfg.tau else (p_threads - 1)
     tau = max(0, min(tau, total - 1)) if total > 1 else 0
     return p_threads, M, total, tau
+
+
+def make_delay_schedule(kind: str, num_updates: int, tau: int, key,
+                        p: int = 1) -> torch.Tensor:
+    """Delays d_m with 0 ≤ d_m ≤ min(m, τ) for one configuration, from a
+    key [2], as [num_updates] int32 (the JAX package's dtype).
+
+    "fixed":    d_m = min(m, τ)  — p equal-speed round-robin threads
+                (thread that applies update m read the iterate τ updates ago).
+    "uniform":  d_m ~ U{0..min(m, τ)} — jittered thread speeds.
+    "zero":     d_m = 0 — degenerates to sequential SVRG.
+
+    ``p`` is accepted for the JAX package's signature; τ carries it.
+    """
+    del p
+    if kind not in DELAY_IDS:
+        raise ValueError(f"unknown delay schedule {kind!r}")
+    delay_id = DELAY_IDS["zero"] if tau == 0 else DELAY_IDS[kind]
+    return _delay_schedule_core(delay_id, num_updates, tau,
+                                key).to(torch.int32)
 
 
 def _check_kinds(scheme: str, delay_kind: str) -> None:

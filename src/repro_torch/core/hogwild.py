@@ -84,6 +84,22 @@ def _hogwild_epochs_core(obj: Objective, data, w0, key, gamma0, decay, tau,
                           row_epochs=row_epochs, epoch=epoch)
 
 
+def hogwild_epoch(obj: Objective, w, key, step_size: float,
+                  num_threads: int, tau: int = -1, scheme: str = "unlock",
+                  drop_prob: float = 0.02, delay_kind: str = "fixed"):
+    """One Hogwild! epoch for one configuration: flat ``w`` [d] and key [2]
+    → the epoch's last iterate [d], on the objective's device."""
+    _check_kinds(scheme, delay_kind)
+    w = obj.as_flat(w)
+    _, total, tau = _resolve_hogwild_steps(obj.n, num_threads, tau)
+    delay_id = DELAY_IDS["zero"] if tau == 0 else DELAY_IDS[delay_kind]
+    gamma = torch.full((1,), step_size, dtype=torch.float32, device=w.device)
+    return _hogwild_epoch_core(
+        obj, obj.data_args(), w[None], key.to(w.device)[None], gamma, [tau],
+        [SCHEME_IDS[scheme]], [delay_id], total=total, buf_len=tau + 1,
+        drop_prob=drop_prob)[0]
+
+
 def run_hogwild(obj: Objective, epochs: int, step_size: float,
                 num_threads: int = 8, decay: float = 0.9,
                 scheme: str = "unlock", tau: int = -1, seed: int = 0,

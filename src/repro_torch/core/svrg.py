@@ -44,11 +44,15 @@ def svrg_epoch(obj: Objective, w, key, step_size: float,
     u0 = w
     idx = prng.randint(key.to(w.device), (num_inner,), 0, obj.n)
     lr = torch.full((1,), step_size, dtype=torch.float32, device=w.device)
-    u, acc = u0, torch.zeros_like(u0)
-    for i in idx:
-        acc += u
+    u = u0
+    acc = torch.zeros_like(u0) if option == 2 else None
+    if acc is not None and num_inner > 0:
+        acc += u0
+    for m, i in enumerate(idx):
+        # the running sum u_0 + … + u_{M−1}: each update but the last adds
+        # its result in the kernel's epilogue
         u = svrg_update(u, obj.sample_grad(u, i), obj.sample_grad(u0, i), mu,
-                        lr)
+                        lr, acc=None if m == num_inner - 1 else acc)
     return u if option == 1 else acc / num_inner
 
 

@@ -4,30 +4,45 @@
 //
 // Replaces the TPU kernel src/repro/kernels/svrg_update/kernel.py
 // (`_update_kernel`, launched by `svrg_update_2d`), which ran one (64, 128)
-// VMEM tile per grid step.
+// VMEM tile per grid step. The launch also takes, as its epilogue, two
+// optional stores of the engine's inner step:
 //
-// Bound on this card: bytes. Each element is read from 4 inputs and written
-// once (5 * 4 bytes in float32) for 4-6 flops, far below the H100's
-// ~20 flop/byte balance point. At the engine's shape (C rows of d = 2048)
-// that is 40 KB per row, ~12 ns at 3.35 TB/s, so one call is bound by the
-// launch itself, not by the memory. Removing launches (the K3 megakernel)
-// is the remedy, not this kernel.
+//     ring[c, slot[c], j] = out[c, j]       (the iterate into its ring-buffer slot)
+//     acc[c, j]          += out[c, j]       (the running sum of option 2)
 //
-// Design: one elementwise pass with a grid-stride loop. When d % 4 == 0 and
-// every pointer is aligned, each thread moves 4 elements per access (16-byte
-// float4-sized loads in float32, 8-byte loads in bfloat16); otherwise it
-// falls back to scalar accesses. The (64, 128) tile padding of the TPU
-// kernel is dropped: any [C, d] shape is taken as it is. Math is float32
-// with explicit round-to-nearest intrinsics (no fused multiply-add), so the
-// result equals the plain torch version element for element; bfloat16
-// inputs are widened with the conversion intrinsics and the result is
-// rounded back. lr is a per-row device array, so one launch updates every
-// row of a sweep group with its own step size.
+// Bound on this card: bytes. Each element is read from 4 inputs (5 with acc)
+// and written once (3 times with both stores) for 4-6 flops, far below the
+// H100's ~20 flop/byte balance point. At the engine's shape (C rows of
+// d = 2048) that is 40-64 KB per row, 12-20 ns at 3.35 TB/s, so one call is
+// bound by the launch itself and the host's path to it, not by the memory.
+// The design therefore does more per launch: the engine's ring store and
+// running sum, two more launches per inner step before, are this launch's
+// epilogue, and the host path (kernels/svrg_update/ops.py) is kept lean.
+//
+// Design: one block per row (d = 2048 in float32 is 512 threads of one
+// float4 each), a grid-stride loop over the rows past kMaxBlocks and over the
+// columns past kMaxThreads accesses. When d % 4 == 0 and every pointer is
+// aligned, each thread moves 4 elements per access (16-byte loads in
+// float32, 8-byte in bfloat16); otherwise it takes scalar accesses. The
+// (64, 128) tile padding of the TPU kernel is dropped: any [C, d] shape is
+// taken as it is. Math is float32 with explicit round-to-nearest intrinsics
+// (no fused multiply-add), so the result equals the plain torch version
+// element for element; bfloat16 inputs are widened with the conversion
+// intrinsics and the result is rounded back, and acc's add is one float32 add
+// rounded to acc's type, as torch's `acc += out`. lr is a per-row device
+// array and slot a per-row device int64 array, so one launch updates every row
+// of a sweep group with its own step size and ring slot, and nothing waits
+// for the host. A slot outside [0, ring_len) traps (the launch fails), as an
+// index out of range fails in torch.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
+
+constexpr int kMaxThreads = 512;
+constexpr long long kMaxBlocks = 132 * 16;
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
@@ -53,29 +68,59 @@ __device__ __forceinline__ float update_one(float u, float g, float g0, float gf
   return __fsub_rn(u, __fmul_rn(lr, v));
 }
 
+struct Args {
+  const void* u;
+  const void* g;
+  const void* g0;
+  const void* gf;
+  const float* lr;
+  void* out;
+  void* ring;              // [rows, ring_len, d] or null
+  const long long* slot;   // [rows], with ring
+  void* acc;               // [rows, d] or null
+  long long rows, d, ring_len;
+  float wd;
+};
+
 template <typename T, int VEC>
-__global__ void svrg_update_kernel(const T* __restrict__ u, const T* __restrict__ g,
-                                   const T* __restrict__ g0, const T* __restrict__ gf,
-                                   const float* __restrict__ lr, T* __restrict__ out,
-                                   long long rows, long long d, float wd, int use_wd) {
+__global__ void svrg_update_kernel(Args a) {
   using P = Pack<T, VEC>;
-  const long long row_vecs = d / VEC;
-  const long long total = rows * row_vecs;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < total;
-       k += stride) {
-    const float rate = lr[k / row_vecs];
-    const P pu = reinterpret_cast<const P*>(u)[k];
-    const P pg = reinterpret_cast<const P*>(g)[k];
-    const P pg0 = reinterpret_cast<const P*>(g0)[k];
-    const P pgf = reinterpret_cast<const P*>(gf)[k];
-    P po;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      po.v[e] = narrow<T>(update_one(widen(pu.v[e]), widen(pg.v[e]), widen(pg0.v[e]),
-                                     widen(pgf.v[e]), rate, wd, use_wd != 0));
+  const P* u = static_cast<const P*>(a.u);
+  const P* g = static_cast<const P*>(a.g);
+  const P* g0 = static_cast<const P*>(a.g0);
+  const P* gf = static_cast<const P*>(a.gf);
+  P* out = static_cast<P*>(a.out);
+  P* acc = static_cast<P*>(a.acc);
+  const long long row_vecs = a.d / VEC;
+  const bool use_wd = a.wd != 0.0f;
+  for (long long c = blockIdx.x; c < a.rows; c += gridDim.x) {
+    const float rate = a.lr[c];
+    P* ring = nullptr;
+    if (a.ring) {
+      const long long slot = a.slot[c];
+      if (slot < 0 || slot >= a.ring_len) __trap();
+      ring = static_cast<P*>(a.ring) + (c * a.ring_len + slot) * row_vecs;
     }
-    reinterpret_cast<P*>(out)[k] = po;
+    const long long base = c * row_vecs;
+    for (long long k = threadIdx.x; k < row_vecs; k += blockDim.x) {
+      const P pu = u[base + k], pg = g[base + k], pg0 = g0[base + k], pgf = gf[base + k];
+      P po;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        po.v[e] = narrow<T>(update_one(widen(pu.v[e]), widen(pg.v[e]), widen(pg0.v[e]),
+                                       widen(pgf.v[e]), rate, a.wd, use_wd));
+      }
+      out[base + k] = po;
+      if (ring) ring[k] = po;
+      if (acc) {
+        P pa = acc[base + k];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          pa.v[e] = narrow<T>(__fadd_rn(widen(pa.v[e]), widen(po.v[e])));
+        }
+        acc[base + k] = pa;
+      }
+    }
   }
 }
 
@@ -84,45 +129,48 @@ bool aligned(const void* p, uintptr_t bytes) {
 }
 
 template <typename T>
-int launch(const void* u, const void* g, const void* g0, const void* gf, const void* lr,
-           void* out, long long rows, long long d, float wd, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  constexpr long long kMaxBlocks = 132 * 16;
+int launch(const Args& a, cudaStream_t stream) {
   const uintptr_t vec_bytes = sizeof(T) * 4;
-  const bool vec = d % 4 == 0 && aligned(u, vec_bytes) && aligned(g, vec_bytes) &&
-                   aligned(g0, vec_bytes) && aligned(gf, vec_bytes) &&
-                   aligned(out, vec_bytes);
-  const long long work = rows * d / (vec ? 4 : 1);
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  const int use_wd = wd != 0.0f;
-  const T* tu = static_cast<const T*>(u);
-  const T* tg = static_cast<const T*>(g);
-  const T* tg0 = static_cast<const T*>(g0);
-  const T* tgf = static_cast<const T*>(gf);
-  const float* tlr = static_cast<const float*>(lr);
-  T* tout = static_cast<T*>(out);
+  const bool vec = a.d % 4 == 0 && aligned(a.u, vec_bytes) && aligned(a.g, vec_bytes) &&
+                   aligned(a.g0, vec_bytes) && aligned(a.gf, vec_bytes) &&
+                   aligned(a.out, vec_bytes) && aligned(a.ring, vec_bytes) &&
+                   aligned(a.acc, vec_bytes);
+  const long long row_vecs = a.d / (vec ? 4 : 1);
+  long long threads = (row_vecs + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  const unsigned blocks = (unsigned)(a.rows < kMaxBlocks ? a.rows : kMaxBlocks);
   if (vec) {
-    svrg_update_kernel<T, 4><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        tu, tg, tg0, tgf, tlr, tout, rows, d, wd, use_wd);
+    svrg_update_kernel<T, 4><<<blocks, (unsigned)threads, 0, stream>>>(a);
   } else {
-    svrg_update_kernel<T, 1><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        tu, tg, tg0, tgf, tlr, tout, rows, d, wd, use_wd);
+    svrg_update_kernel<T, 1><<<blocks, (unsigned)threads, 0, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. u, g, g0, gf, out: [rows, d] contiguous;
-// lr: [rows] float32. Returns the CUDA error code of the launch (0 = success).
-extern "C" int svrg_update_launch(int dtype, const void* u, const void* g, const void* g0,
-                                  const void* gf, const void* lr, void* out, long long rows,
-                                  long long d, float wd, void* stream) {
+// The arguments, as one array of int64 a[15]: dtype (0 = float32, 1 =
+// bfloat16); the pointers u, g, g0, gf, lr, out, ring, slot, acc; rows, d,
+// ring_len; wd as the bits of a float32; the stream. u, g, g0, gf, out and
+// acc: [rows, d] contiguous; lr: [rows] float32; ring: [rows, ring_len, d]
+// contiguous with slot [rows] int64, or both null; acc may be null. Returns
+// the CUDA error code of the launch (0 = success).
+extern "C" int svrg_update_launch(const long long* a) {
+  const long long rows = a[10], d = a[11], ring_len = a[12];
   if (rows <= 0 || d <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(u, g, g0, gf, lr, out, rows, d, wd, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(u, g, g0, gf, lr, out, rows, d, wd, s);
+  void* ring = reinterpret_cast<void*>(a[7]);
+  const void* slot = reinterpret_cast<const void*>(a[8]);
+  if (ring != nullptr && (slot == nullptr || ring_len <= 0)) return (int)cudaErrorInvalidValue;
+  const int bits = (int)a[13];
+  float wd;
+  memcpy(&wd, &bits, sizeof(wd));
+  const Args args{reinterpret_cast<const void*>(a[1]), reinterpret_cast<const void*>(a[2]),
+                  reinterpret_cast<const void*>(a[3]), reinterpret_cast<const void*>(a[4]),
+                  reinterpret_cast<const float*>(a[5]), reinterpret_cast<void*>(a[6]), ring,
+                  static_cast<const long long*>(slot), reinterpret_cast<void*>(a[9]), rows, d,
+                  ring_len, wd};
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(a[14]);
+  if (a[0] == 0) return launch<float>(args, s);
+  if (a[0] == 1) return launch<__nv_bfloat16>(args, s);
   return (int)cudaErrorInvalidValue;
 }

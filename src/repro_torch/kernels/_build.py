@@ -7,8 +7,9 @@ on its own, with no PyTorch headers (seconds, not minutes):
          -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so <name>.cu
 
 into ``build/repro_torch/`` at the repository root (listed in .gitignore).
-The file name carries a hash of the source and the flags, so an edited
-source rebuilds at its next use and an unchanged one loads as it is. The
+The file name carries a hash of the source, the headers of ``csrc/`` (the
+sources include them by relative path) and the flags, so an edited source
+or header rebuilds at its next use and an unchanged one loads as it is. The
 compiler's output (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside each library as ``<name>-<hash>.log``.
 
@@ -55,8 +56,9 @@ def nvcc() -> str:
 def target(name: str) -> Tuple[Path, Path]:
     """(source, library path) of one kernel source."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 

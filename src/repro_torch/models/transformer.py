@@ -142,7 +142,7 @@ def block_apply(cfg: ModelConfig, lp: Dict, h, pos, window: int):
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    e = params["tok_embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    e = params["tok_embed"][tokens].to(getattr(torch, cfg.dtype))
     if cfg.family in ("dense", "moe", "vlm") and cfg.norm == "rmsnorm":
         # gemma-style scale, rounded to the activation dtype first as in JAX
         e = e * torch.tensor(float(cfg.d_model) ** 0.5, dtype=torch.float32

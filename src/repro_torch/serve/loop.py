@@ -49,16 +49,17 @@ class ServeSession:
 
 
 def _sample(logits, temperature: float, key):
+    """Next tokens [B], int32 as in the JAX package."""
     if temperature <= 0:
-        return torch.argmax(logits, dim=-1)
-    return prng.categorical(key, logits / temperature)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return prng.categorical(key, logits / temperature).to(torch.int32)
 
 
 def generate(bundle: ModelBundle, params, batch, max_new_tokens: int,
              cache_len: int, temperature: float = 0.0, seed: int = 0):
     """Prefill ``batch`` then decode ``max_new_tokens`` (greedy at
-    temperature 0); returns [B, max_new_tokens] int64 tokens on the
-    bundle's device."""
+    temperature 0); returns [B, max_new_tokens] int32 tokens on the
+    bundle's device, as the JAX package does."""
     sess = ServeSession(bundle, params, cache_len)
     key = prng.PRNGKey(seed, bundle.device)
     logits = sess.prefill(batch)

@@ -20,6 +20,7 @@ from repro.core.objective import LogisticRegression as JaxLogReg
 from repro_torch import convert, prng
 from repro_torch.config import SVRGConfig
 from repro_torch.core import asysvrg as pa
+from repro_torch.core import hogwild_epoch, make_delay_schedule
 from repro_torch.core import hogwild as ph
 from repro_torch.core import svrg as ps
 from repro_torch.core.objective import LogisticRegression
@@ -72,6 +73,20 @@ def test_delay_schedule_matches_jax(kind):
     got = pa._delay_schedule_core([pa.DELAY_IDS[kind]], 500, [7],
                                   convert.to_key(key)[None])
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind,tau", [("zero", 7), ("fixed", 7),
+                                      ("uniform", 7), ("uniform", 0)])
+def test_make_delay_schedule_public_matches_jax(kind, tau):
+    """`repro_torch.core.make_delay_schedule`, the public single-config
+    wrapper, against the JAX package's: values and dtype."""
+    key = jax.random.PRNGKey(6)
+    want = np.asarray(ja.make_delay_schedule(kind, 300, tau, key, p=8))
+    got = make_delay_schedule(kind, 300, tau, convert.to_key(key), p=8)
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        make_delay_schedule("nope", 10, tau, convert.to_key(key))
 
 
 @pytest.mark.parametrize("scheme", ["consistent", "inconsistent", "unlock"])
@@ -156,6 +171,57 @@ def test_hogwild_epoch_matches_jax(pair):
         torch.tensor([0.3]), [3], [pa.SCHEME_IDS["unlock"]],
         [pa.DELAY_IDS["uniform"]], total=96, buf_len=4, drop_prob=0.02)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("scheme,tau,delay_kind", [
+    ("unlock", -1, "uniform"), ("inconsistent", 2, "fixed"),
+    ("consistent", 0, "fixed")])
+def test_hogwild_epoch_public_matches_jax(pair, scheme, tau, delay_kind):
+    """`repro_torch.core.hogwild_epoch` against the JAX package's."""
+    jo, po, w = pair
+    key = jax.random.PRNGKey(12)
+    kw = dict(num_threads=4, tau=tau, scheme=scheme, drop_prob=0.05,
+              delay_kind=delay_kind)
+    want = jh.hogwild_epoch(jo, jnp.asarray(w), key, 0.3, **kw)
+    got = hogwild_epoch(po, torch.tensor(w), convert.to_key(key), 0.3, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError):
+        hogwild_epoch(po, torch.tensor(w), convert.to_key(key), 0.3,
+                      num_threads=4, scheme="nope")
+    with pytest.raises(ValueError):
+        hogwild_epoch(po, torch.tensor(w), convert.to_key(key), 0.3,
+                      num_threads=4, delay_kind="nope")
+
+
+@pytest.mark.parametrize("scheme", ["consistent", "inconsistent", "unlock"])
+@pytest.mark.parametrize("option", [1, 2])
+def test_epoch_core_epilogue_with_drops_matches_jax(pair, scheme, option):
+    """The engine's one call per update (the update, its ring slot and, for
+    option 2, the running sum) against the JAX epoch, with drops on."""
+    jo, po, w = pair
+    cfg = dict(scheme=scheme, step_size=0.4, num_threads=4, inner_steps=12,
+               option=option)
+    key = jax.random.PRNGKey(21)
+    want = ja.asysvrg_epoch(jo, jnp.asarray(w), key, JaxCfg(**cfg),
+                            delay_kind="uniform", drop_prob=0.1)
+    got = pa.asysvrg_epoch(po, torch.tensor(w), convert.to_key(key),
+                           SVRGConfig(**cfg), delay_kind="uniform",
+                           drop_prob=0.1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("option", [1, 2])
+@pytest.mark.parametrize("num_inner", [1, 2, 25])
+def test_svrg_epoch_epilogue_matches_jax(pair, option, num_inner):
+    """Serial SVRG's running sum u_0 + … + u_{M−1} (u_0 added once, every
+    update but the last in the kernel's epilogue) against the JAX epoch."""
+    jo, po, w = pair
+    key = jax.random.PRNGKey(4)
+    want = js.svrg_epoch(jo, jnp.asarray(w), key, 0.5, num_inner,
+                         option=option)
+    got = ps.svrg_epoch(po, torch.tensor(w), convert.to_key(key), 0.5,
+                        num_inner, option=option)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_updates_go_through_svrg_update(pair, monkeypatch):

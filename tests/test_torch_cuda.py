@@ -14,6 +14,7 @@ from repro_torch import prng
 from repro_torch.config import SVRGConfig
 from repro_torch.core.asysvrg import run_asysvrg
 from repro_torch.core.objective import LogisticRegression
+from repro_torch.core.svrg import run_svrg
 from repro_torch.core.sweep import SweepSpec, run_sweep
 from repro_torch.kernels.flash_attention.ops import gqa_flash
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -64,6 +65,95 @@ def test_logreg_grad_kernel_matches_plain(gen, n, p):
         assert torch.equal(G[c], logreg_grad(X, y, W[c:c + 1], 1e-4)[0])
 
 
+@pytest.mark.parametrize("epilogue", ["ring", "acc", "ring+acc"])
+@pytest.mark.parametrize("d", [2048, 33])
+@pytest.mark.parametrize("rows", [1, 4, 133])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_svrg_update_epilogue_equals_plain(gen, dtype, rows, d, epilogue):
+    """The update, its ring store and its running sum in one launch, each
+    bit-equal to the plain version's torch ops on the same tensors."""
+    u, g, g0, gf = (torch.randn((rows, d), generator=gen, device="cuda")
+                    .to(dtype) for _ in range(4))
+    lr = torch.rand(rows, generator=gen, device="cuda")
+    ring0 = torch.randn((rows, 6, d), generator=gen, device="cuda").to(dtype)
+    acc0 = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    slot = torch.randint(0, 6, (rows,), generator=gen, device="cuda")
+    got, want = [], []
+    for fn in (svrg_update, svrg_update_ref):
+        ring, acc = ring0.clone(), acc0.clone()
+        kw = dict(ring=ring if "ring" in epilogue else None,
+                  slot=slot if "ring" in epilogue else None,
+                  acc=acc if "acc" in epilogue else None)
+        (got if fn is svrg_update else want).append(
+            (fn(u, g, g0, gf, lr, 0.01, **kw), ring, acc))
+    before = svrg_update.launches
+    svrg_update(u, g, g0, gf, lr, 0.01, ring=ring0.clone(), slot=slot)
+    assert svrg_update.launches == before + 1
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+
+
+def test_svrg_update_rejects_a_bad_epilogue(gen):
+    x = torch.randn((2, 8), generator=gen, device="cuda")
+    ring = torch.zeros((2, 3, 8), device="cuda")
+    slot = torch.zeros(2, dtype=torch.int64, device="cuda")
+    lr = torch.full((2,), 0.1, device="cuda")
+    bad = [dict(ring=ring), dict(slot=slot),
+           dict(ring=ring.double(), slot=slot),
+           dict(ring=ring[:, :, :4], slot=slot),
+           dict(ring=torch.zeros((3, 3, 8), device="cuda"), slot=slot),
+           dict(ring=ring, slot=slot.int()),
+           dict(ring=ring, slot=slot.cpu()),
+           dict(acc=torch.zeros((2, 8), device="cuda").T.contiguous().T),
+           dict(acc=torch.zeros((2, 8), dtype=torch.bfloat16, device="cuda")),
+           dict(acc=torch.zeros((2, 8)))]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            svrg_update(x, x, x, x, lr, **kw)
+    with pytest.raises(ValueError):
+        svrg_update(x, x, x, x, lr.cpu())
+
+
+# widths: rcv1, news20, odd, just past the kernel's column tiers, tiny, and
+# past the on-chip width (the two-pass kernels)
+@pytest.mark.parametrize("n,p", [(20242, 2048), (19996, 4096), (1001, 333),
+                                 (777, 4097), (50, 7), (300, 9000)])
+@pytest.mark.parametrize("C", [1, 3, 4, 5, 9])
+def test_logreg_grad_widths_and_chunks_match_plain(gen, n, p, C):
+    """rtol 1e-5, atol 1e-6 (summation order); each row bit-equal to itself
+    alone, across the chunk edge (C = 5, 9)."""
+    X = torch.randn((n, p), generator=gen, device="cuda") / p ** 0.5
+    y = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    W = 0.3 * torch.randn((C, p), generator=gen, device="cuda")
+    before = logreg_grad.launches
+    G = logreg_grad(X, y, W, 1e-4)
+    assert logreg_grad.launches == before + 1
+    torch.testing.assert_close(G, logreg_grad_ref(X, y, W, 1e-4),
+                               rtol=1e-5, atol=1e-6)
+    for c in range(C):
+        assert torch.equal(G[c], logreg_grad(X, y, W[c:c + 1], 1e-4)[0])
+
+
+def test_logreg_grad_library_pipeline_and_no_spills(gen):
+    """The one-pass kernel's SASS holds the bulk copy and the mbarrier wait,
+    and no kernel of the library spills registers."""
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    _build.library("logreg_grad")
+    lib = _build.target("logreg_grad")[1]
+    log = lib.with_suffix(".log").read_text()
+    spills = [ln for ln in log.splitlines() if "spill" in ln
+              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    assert not spills, spills
+    sass = subprocess.run(
+        [str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    assert sass.count("UBLKCP") > 0 and sass.count("SYNCS.PHASECHK") > 0
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     x = torch.randn((4, 8), generator=gen, device="cuda")
     with pytest.raises(ValueError):
@@ -88,6 +178,21 @@ def test_engine_on_the_card_matches_cpu(gen):
     assert card.w.device.type == "cuda"
     np.testing.assert_allclose(card.history, cpu.history, rtol=1e-5)
     np.testing.assert_allclose(card.w.cpu().numpy(), cpu.w.numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("option", [1, 2])
+def test_svrg_on_the_card_matches_cpu(gen, option):
+    """Serial SVRG, whose running sum goes through the kernel's epilogue."""
+    rng = np.random.default_rng(1)
+    X = (rng.standard_normal((96, 64)) / 8).astype(np.float32)
+    y = np.where(rng.random(96) < 0.5, -1.0, 1.0).astype(np.float32)
+    card = run_svrg(LogisticRegression(X, y, 1e-3), 2, 0.5, num_inner=40,
+                    option=option, seed=2)
+    cpu = run_svrg(LogisticRegression(X, y, 1e-3, device="cpu"), 2, 0.5,
+                   num_inner=40, option=option, seed=2)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-5)
+    np.testing.assert_allclose(card[0].cpu().numpy(), cpu[0].numpy(),
                                rtol=1e-5, atol=1e-6)
 
 

@@ -58,6 +58,47 @@ def test_svrg_update_per_row_lr():
         assert torch.equal(out[c], one)
 
 
+@pytest.mark.parametrize("shape", [(64,), (1, 2048), (3, 50), (4, 33)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("epilogue", ["ring", "acc", "ring+acc"])
+def test_svrg_update_epilogue_plain(shape, dtype, epilogue):
+    """The plain version's ``ring``/``slot``/``acc`` keywords equal the torch
+    ops the engine ran before (``ring[rows, slot] = u'``, ``acc += u'``), bit
+    for bit, and leave u' as it is; u' against JAX's `apply_leaf`."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs(shape, seed=7 + shape[-1])
+    u, g, g0, gf = (torch.tensor(a).to(tdt) for a in arrays)
+    rows, d = (shape[0] if len(shape) == 2 else 1), shape[-1]
+    lr = torch.linspace(0.05, 0.5, rows)
+    lr_arg = lr if len(shape) == 2 else float(lr[0])
+    rng = np.random.default_rng(3)
+    ring0 = torch.tensor(rng.standard_normal((rows, 5, d)),
+                         dtype=torch.float32).to(tdt)
+    acc0 = torch.tensor(rng.standard_normal(shape), dtype=torch.float32).to(tdt)
+    slot = torch.tensor(rng.integers(0, 5, rows), dtype=torch.int64)
+    ring, acc = ring0.clone(), acc0.clone()
+    kw = dict(ring=ring if "ring" in epilogue else None,
+              slot=slot if "ring" in epilogue else None,
+              acc=acc if "acc" in epilogue else None)
+    out = svrg_update(u, g, g0, gf, lr_arg, **kw)
+    bare = svrg_update(u, g, g0, gf, lr_arg)
+    assert torch.equal(out, bare)
+    want_ring, want_acc = ring0.clone(), acc0.clone()
+    if "ring" in epilogue:
+        want_ring[torch.arange(rows), slot] = bare.reshape(rows, d)
+    if "acc" in epilogue:
+        want_acc += bare
+    assert torch.equal(ring, want_ring) and torch.equal(acc, want_acc)
+    got = out.to(torch.float32).numpy().reshape(rows, d)
+    for c in range(rows):   # apply_leaf takes one step size
+        j_args = [jnp.asarray(a.reshape(rows, d)[c]).astype(jdt)
+                  for a in arrays]
+        want = jax_svrg_ops.apply_leaf(*j_args, float(lr[c]), interpret=True,
+                                       force_kernel=True)
+        np.testing.assert_allclose(got[c], np.asarray(want, np.float32),
+                                   atol=tol)
+
+
 @pytest.mark.parametrize("B,P", [(96, 64), (200, 300), (128, 512)])
 def test_logreg_grad_plain_matches_jax(B, P):
     rng = np.random.default_rng(B + P)

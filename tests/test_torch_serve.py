@@ -85,6 +85,48 @@ def test_temperature_generate_in_range_and_deterministic(pair):
     assert int(out.min()) >= 0 and int(out.max()) < bundle.cfg.vocab_size
 
 
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_generate_returns_int32_like_jax(pair, temperature):
+    """`repro_torch.serve.generate` returns int32 tokens, as the JAX package
+    does (greedy: the same tokens), and the session decodes the int32
+    tokens it feeds back."""
+    from repro_torch.serve import ServeSession as Session
+    from repro_torch.serve import generate as public_generate
+    jbundle, jparams, bundle, params = pair
+    toks = jax.random.randint(jax.random.PRNGKey(3), (2, 10), 0,
+                              bundle.cfg.vocab_size)
+    kw = dict(max_new_tokens=4, cache_len=14, temperature=temperature, seed=5)
+    want = np.asarray(jax_generate(jbundle, jparams, {"tokens": toks}, **kw))
+    got = public_generate(bundle, params, {"tokens": np.asarray(toks)}, **kw)
+    assert want.dtype == np.int32 and got.dtype == torch.int32
+    assert got.shape == want.shape
+    if temperature == 0.0:
+        np.testing.assert_array_equal(got.numpy(), want)
+        sess = Session(bundle, params, cache_len=14)
+        tok = torch.argmax(sess.prefill({"tokens": np.asarray(toks)}), -1)
+        steps = [tok.to(torch.int32)]
+        for _ in range(3):
+            steps.append(torch.argmax(sess.decode(steps[-1]), -1)
+                         .to(torch.int32))
+        assert torch.equal(torch.stack(steps, 1), got)
+
+
+def test_param_defs_through_public_names_match_jax(pair):
+    """`repro_torch.sharding.ParamDef` / `init_from_defs`: the reference's
+    fields, and the same tree of shapes and dtypes from the same defs."""
+    from repro.sharding import ParamDef as JaxParamDef
+    from repro_torch.sharding import ParamDef, init_from_defs
+    from repro_torch.sharding.rules import tree_map
+    _, jparams, bundle, _ = pair
+    assert ParamDef._fields == JaxParamDef._fields
+    params = init_from_defs(torch.Generator().manual_seed(0),
+                            bundle.param_defs)
+    got = tree_map(lambda t: (tuple(t.shape),
+                              str(t.dtype).replace("torch.", "")), params)
+    want = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jparams)
+    assert got == want
+
+
 @pytest.mark.parametrize("shape,V", [((4, 2048), 262144), ((3, 17), 512)])
 def test_prompt_tokens_equal_jax(shape, V):
     for seed in (0, 5):

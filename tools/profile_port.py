@@ -3,6 +3,7 @@
 on the card.
 
     python3 tools/profile_port.py              # everything below
+    python3 tools/profile_port.py batched      # the batched engine and K1's host path
     python3 tools/profile_port.py serve        # the serve path only
     python3 tools/profile_port.py sweep_epoch  # the fused engine and K3 only
 
@@ -14,8 +15,22 @@ At the rcv1 width (n = 20242, p = 2048; data from
     `repro_torch.core.asysvrg._epoch_core`, once without the profiler
     (host clock around a synchronised run: wall seconds per inner update)
     and once under ``torch.profiler`` (CPU + CUDA activities: the
-    device-busy share of the window, the device kernels by total time, the
+    device-busy share of the window, device launches and host
+    ``cudaLaunchKernel`` µs per update, the device kernels by total time, the
     host ops by self time);
+  * K1's host path: µs per call of `svrg_update` (1 row of d = 2048,
+    float32) and of its pieces, each over 10^4 calls with no synchronise in
+    between: the device dispatch, ``torch.as_tensor`` of the step size,
+    ``torch.empty_like``, PyTorch's current-stream lookup (public and raw),
+    the launcher (`kernel.launch`: stream, pointers, the ctypes call, the
+    enqueue) and the whole call; the engine's step before the epilogue
+    (the update, the ring store, the running sum: three calls) and, where
+    the wrapper takes them, the same step as one call. Then K1 and K2 on
+    the card (CUDA events, median of 11 windows): `svrg_update` per call,
+    1 row, bare and as the engine calls it, and `logreg_grad` at 1 and 4
+    rows beside the two-matmul yardstick X.T @ (X @ W.T). This mode runs
+    against an older checkout too (`git archive` of the parent under
+    ``build/``), for turns of parent and change on one card;
   * the fused engine: one epoch of `run_sweep` with
     ``engine_mode="fused"`` over the 5 rows `chip_smoke.py` runs (4-row
     AsySVRG/SVRG group + 1 Hogwild! row), the same two ways;
@@ -107,11 +122,16 @@ def profile(obj, rows: int, steps: int) -> dict:
     busy_us = sum(_device_time_us(e) for e in kernels)
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
+    launch_us = sum(e.self_cpu_time_total for e in host
+                    if e.key == "cudaLaunchKernel")
     return {
         "rows": rows, "steps": steps, "n": obj.n, "p": obj.p,
         "wall_s_per_step": wall / steps,
+        "wall_us_per_step": 1e6 * wall / steps,
         "profiled_wall_s_per_step": prof_wall / steps,
         "device_busy_share": busy_us * 1e-6 / prof_wall,
+        "launches_per_step": sum(e.count for e in kernels) / steps,
+        "cuda_launch_host_us_per_step": launch_us / steps,
         "device_kernels": [
             {"name": e.key[:80], "count": e.count,
              "total_us": _device_time_us(e),
@@ -123,6 +143,110 @@ def profile(obj, rows: int, steps: int) -> dict:
              "self_us_per_step": e.self_cpu_time_total / steps}
             for e in host[:12]],
     }
+
+
+def _host_us(fn, calls: int = 10_000) -> float:
+    """Host µs per call of ``fn`` over ``calls`` calls with no synchronise
+    in between (after 100 warm-up calls); the device is drained after."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / calls
+
+
+def k1_host_path(d: int = 2048, ring_len: int = 8) -> dict:
+    """µs per call of svrg_update's host path and of its pieces (1 row,
+    float32): see the module's docstring."""
+    import inspect
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.svrg_update import kernel
+    from repro_torch.kernels.svrg_update.ops import svrg_update
+
+    dev = torch.device("cuda")
+    u, g, g0, gf = (torch.randn((1, d), device=dev) for _ in range(4))
+    lr = torch.full((1,), 0.1, device=dev)
+    out = torch.empty_like(u)
+    ring = torch.zeros((1, ring_len, d), device=dev)
+    slot = torch.zeros(1, dtype=torch.int64, device=dev)
+    rows = torch.arange(1, device=dev)
+    acc = torch.zeros_like(u)
+
+    def three_calls():
+        v = svrg_update(u, g, g0, gf, lr)
+        ring[rows, slot] = v
+        acc.add_(v)
+
+    pieces = {
+        "dispatch_route": lambda: dispatch.route(u, g, g0, gf),
+        "as_tensor_lr": lambda: torch.as_tensor(lr, dtype=torch.float32,
+                                                device=u.device),
+        "empty_like": lambda: torch.empty_like(u),
+        "current_stream": lambda: torch.cuda.current_stream(u.device).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "launcher": lambda: kernel.launch(u, g, g0, gf, lr, out, 0.0),
+        "call": lambda: svrg_update(u, g, g0, gf, lr),
+        "engine_step_three_calls": three_calls,
+    }
+    if "ring" in inspect.signature(svrg_update).parameters:
+        pieces["engine_step_one_call"] = lambda: svrg_update(
+            u, g, g0, gf, lr, ring=ring, slot=slot, acc=acc)
+    return {"k1_host_path": "us_per_call", "rows": 1, "d": d,
+            "calls": 10_000, **{k: _host_us(fn) for k, fn in pieces.items()}}
+
+
+def _event_ms(fn, inner: int, reps: int = 11) -> float:
+    """Median over ``reps`` CUDA-event windows of ``inner`` calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / inner)
+    return sorted(times)[len(times) // 2]
+
+
+def batched_kernel_times(ds, ring_len: int = 8):
+    """K1 per call (1 row, bare and as the engine calls it) and K2 at 1 and
+    4 rows, at the rcv1 width, by CUDA events."""
+    import inspect
+
+    from repro_torch.kernels.logreg_grad.ops import logreg_grad
+    from repro_torch.kernels.svrg_update.ops import svrg_update
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = ds.p
+    u, g, g0, gf = (torch.randn((1, d), generator=gen, device="cuda")
+                    for _ in range(4))
+    lr = torch.full((1,), 0.1, device="cuda")
+    rec = {"kernel": "svrg_update", "rows": 1, "d": d,
+           "ms": _event_ms(lambda: svrg_update(u, g, g0, gf, lr), inner=200)}
+    if "ring" in inspect.signature(svrg_update).parameters:
+        ring = torch.zeros((1, ring_len, d), device="cuda")
+        slot = torch.zeros(1, dtype=torch.int64, device="cuda")
+        acc = torch.zeros_like(u)
+        rec["epilogue_ms"] = _event_ms(lambda: svrg_update(
+            u, g, g0, gf, lr, ring=ring, slot=slot, acc=acc), inner=200)
+    print(json.dumps(rec), flush=True)
+    X, y = ds.as_torch("cuda")
+    for C in (1, 4):
+        W = 0.1 * torch.randn((C, d), generator=gen, device="cuda")
+        print(json.dumps({
+            "kernel": "logreg_grad", "rows": C, "n": ds.n, "p": d,
+            "ms": _event_ms(lambda: logreg_grad(X, y, W, ds.l2_reg), inner=10),
+            "yardstick_ms": _event_ms(lambda: X.T @ (X @ W.T), inner=10)}),
+            flush=True)
 
 
 def profile_fused(obj) -> dict:
@@ -150,22 +274,6 @@ def profile_fused(obj) -> dict:
             {"name": e.key[:80], "count": e.count,
              "total_us": _device_time_us(e)} for e in kernels[:8]],
     }
-
-
-def _kernel_ms(fn, reps: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of one call, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return sorted(times)[len(times) // 2]
 
 
 def profile_sweep_epoch(ds, news20, steps: int = 4096):
@@ -213,7 +321,7 @@ def profile_sweep_epoch(ds, news20, steps: int = 4096):
     for name, which, engine, taus, sids, dids, drop in cases:
         args, kw = inputs(which, engine, taus, sids, dids, drop)
         before = dict(sweep_epoch.placements)
-        ms = _kernel_ms(lambda: sweep_epoch(*args, **kw))
+        ms = _event_ms(lambda: sweep_epoch(*args, **kw), inner=1, reps=3)
         placement = [k for k, v in sweep_epoch.placements.items()
                      if v != before[k]]
         print(json.dumps({"kernel": "sweep_epoch", "case": name, "data": which,
@@ -230,8 +338,9 @@ def profile_sweep_epoch(ds, news20, steps: int = 4096):
             nbytes = ops.shared_bytes(d, buf_len, engine, placement)
             if nbytes > limit:
                 continue
-            ms = _kernel_ms(lambda: sweep_epoch(*args, **kw,
-                                                placement=placement))
+            ms = _event_ms(lambda: sweep_epoch(*args, **kw,
+                                               placement=placement),
+                           inner=1, reps=3)
             print(json.dumps({
                 "kernel": "sweep_epoch", "case": name,
                 "placement": placement, "stages": ops.STAGES,
@@ -243,10 +352,11 @@ def profile_sweep_epoch(ds, news20, steps: int = 4096):
         d = X.shape[1]
         w = 0.1 * torch.randn((C, d), generator=gen, device="cuda")
         mu = 1e-3 * torch.randn((C, d), generator=gen, device="cuda")
-        ms = _kernel_ms(lambda: sweep_epoch(
+        ms = _event_ms(lambda: sweep_epoch(
             X, y, l2, w, mu, prng.keys_from_seeds(range(C), "cuda"),
             torch.full((C,), 2.0, device="cuda"), [7] * C, [1] * C, [1] * C,
-            engine="asysvrg", total=1, buf_len=8, option=2, drop_prob=0.0))
+            engine="asysvrg", total=1, buf_len=8, option=2, drop_prob=0.0),
+            inner=1, reps=3)
         print(json.dumps({"kernel": "sweep_epoch", "case": "loss_pass",
                           "data": which, "n": X.shape[0], "d": d, "rows": C,
                           "updates": 1, "ms": ms,
@@ -348,12 +458,19 @@ def main(argv=None) -> int:
         return 0
     ds = make_synthetic_libsvm("rcv1", scale=1.0)
     obj = LogisticRegression(ds.X, ds.y, ds.l2_reg)
+    if argv == ["batched"]:
+        for rows in (1, 4):
+            print(json.dumps(profile(obj, rows, STEPS)), flush=True)
+        print(json.dumps(k1_host_path()), flush=True)
+        batched_kernel_times(ds)
+        return 0
     if argv == ["sweep_epoch"]:
         print(json.dumps(profile_fused(obj)), flush=True)
         profile_sweep_epoch(ds, make_synthetic_libsvm("news20", scale=1.0))
         return 0
     for rows in (1, 4):
         print(json.dumps(profile(obj, rows, STEPS)), flush=True)
+    print(json.dumps(k1_host_path()), flush=True)
     print(json.dumps(profile_fused(obj)), flush=True)
     profile_sweep_epoch(ds, make_synthetic_libsvm("news20", scale=1.0))
     profile_serve()
