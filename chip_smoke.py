@@ -46,7 +46,23 @@ vocab 262144; random weights from a seed, bf16 activations):
     attention computed in float32 from the same bf16 q, k, v);
   * the same path at 2 layers in float32 (the CUDA-core route), batch 1,
     on the card and on the CPU from the same weights: prefill and decode
-    logits and greedy tokens.
+    logits and greedy tokens;
+
+and the training path at gemma3-4b's full width, depth cut to 12 layers
+(SVRG's six float32 param-sized trees fit in 80 GB; batch 2, sequence
+2048):
+
+  * `train.loop.train` (the CLI's function) with SVRG for 5 steps, a
+    snapshot every 4 over 2 batches, unfused: each loss finite, no kernel
+    launched (training attends in plain torch; K4 has no backward);
+    seconds per step, tokens/s, peak memory;
+  * 2 steps through `make_train_step(..., use_fused_update=True)` against
+    the unfused step from the same state: params allclose, metrics equal,
+    `svrg_update` launched once per param leaf; K1's time over the whole
+    tree beside its bound and the unfused step's torch ops, and K1 alone
+    at `tok_embed`'s shape, bit-equal to its plain version;
+  * a 2-layer float32 model (the reduced config) trained 3 SVRG steps on
+    the card and on the CPU from the same state: losses and params.
 
 `sweep_epoch` is held against its plain version at the main path's shape
 (the 4-row rcv1 group, 40480 inner updates); its other cases (Hogwild!,
@@ -993,6 +1009,255 @@ def phase_serve_card_vs_cpu():
         raise AssertionError(f"serve on the card and the CPU disagree: {rec}")
 
 
+# the training phase's shape: gemma3-4b at full width, depth cut from 34 to
+# 12 layers (two local:global periods; layers 6 and 12 global) so that
+# SVRG's six float32 param-sized trees fit in 80 GB; batch 2, sequence 2048
+TRAIN_ARCH, TRAIN_LAYERS = "gemma3-4b", 12
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS, TRAIN_SNAPSHOT_EVERY, TRAIN_SNAPSHOT_BATCHES = 5, 4, 2
+TRAIN_FUSED_STEPS = 2
+TRAIN_LR = 3e-3        # launch/train.py's default --lr
+
+
+def svrg_update_tok_embed(gen, shape):
+    """K1 against its plain version at the largest leaf of the training
+    phase's tree (tok_embed, [262144, 2560] float32), a step size per row:
+    equal bits; both timed beside the bound."""
+    from repro_torch.kernels.svrg_update.ops import svrg_update
+    from repro_torch.kernels.svrg_update.ref import svrg_update_ref
+
+    u, g, g0, gf = (torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(4))
+    lr = 0.1 * torch.rand(shape[0], generator=gen, device="cuda")
+    before = svrg_update.launches
+    out = svrg_update(u, g, g0, gf, lr)
+    if svrg_update.launches != before + 1:
+        raise AssertionError("svrg_update at tok_embed's shape did not launch")
+    ref = svrg_update_ref(u, g, g0, gf, lr)
+    n = u.numel()
+    bnd, by = bound_ms(5 * 4 * n + 4 * shape[0], 4 * n)
+    rec = dict(kernel="svrg_update", shape=list(shape), dtype="float32",
+               bits_equal=bool(torch.equal(out, ref)),
+               max_abs_err=float((out - ref).abs().max()),
+               ms=median_ms(lambda: svrg_update(u, g, g0, gf, lr), reps=5,
+                            inner=3),
+               plain_ms=median_ms(lambda: svrg_update_ref(u, g, g0, gf, lr),
+                                  reps=5, inner=3),
+               bound_ms=bnd, bound_by=by)
+    emit(phase="kernels_vs_plain", **rec)
+    if not rec["bits_equal"]:
+        raise AssertionError(f"svrg_update at tok_embed's shape: {rec}")
+    return rec
+
+
+def phase_train():
+    """The training path at gemma3-4b's full width, 12 layers, batch 2,
+    sequence 2048 (random weights from seed 0, `SyntheticLMDataset` seed
+    0): `train(...)` with SVRG (snapshot every 4 steps over 2 batches) for
+    5 steps, unfused as the CLI runs it, each step's loss finite, timed per
+    step at its log hook (which reads the loss back, so each interval ends
+    synchronised). Then 2 steps through the fused SVRG update, each from
+    the state the unfused step starts from: params allclose (rtol 1e-5, atol
+    1e-6), metrics equal, K1 launched once per leaf per fused step, K4
+    never. K1's time per fused step (CUDA events over `apply_tree` on the
+    step's trees) beside its bound and the unfused step's torch ops for the
+    same update."""
+    import gc
+
+    from repro_torch.config import SVRGConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import svrg_direction
+    from repro_torch.data.synthetic_lm import SyntheticLMDataset
+    from repro_torch.kernels.svrg_update.ops import apply_tree
+    from repro_torch.models.factory import build_model
+    from repro_torch.models.transformer import _layer_flags
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.loop import device_batch, train
+    from repro_torch.train.state import make_train_step
+    from repro_torch.utils.tree import (tree_bytes, tree_flatten_with_path,
+                                        tree_leaves, tree_map, tree_size)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    cfg = get_config(TRAIN_ARCH).with_overrides(num_layers=TRAIN_LAYERS)
+    bundle = build_model(cfg, "cuda")
+    tok_embed = svrg_update_tok_embed(
+        torch.Generator(device="cuda").manual_seed(3),
+        bundle.param_defs["tok_embed"].shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(steps=TRAIN_STEPS, optimizer="svrg",
+                       learning_rate=TRAIN_LR, seed=0, log_every=1,
+                       svrg=SVRGConfig(snapshot_every=TRAIN_SNAPSHOT_EVERY,
+                                       snapshot_batches=TRAIN_SNAPSHOT_BATCHES))
+    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    logged = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train(bundle, tcfg, ds.batch_at,
+                  hooks=lambda s, m: logged.append((s, time.perf_counter(), m)))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for _, _, m in logged]
+    ends = [t for _, t, _ in logged]
+    step_s = np.diff(ends).tolist()                # steps 2..5
+    snap = [s % TRAIN_SNAPSHOT_EVERY == 0 for s, _, _ in logged][1:]
+    plain_steps = [t for t, sn in zip(step_s, snap) if not sn]
+    s_per_step = float(np.mean(plain_steps))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    if [s for s, _, _ in logged] != list(range(TRAIN_STEPS)) \
+            or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train: steps {[s for s, _, _ in logged]}, "
+                             f"losses {losses}")
+    if counts != {"svrg_update": 0, "logreg_grad": 0, "sweep_epoch": 0,
+                  "flash_attention": 0}:
+        raise AssertionError(f"train (unfused) launch counts {counts}")
+
+    # the fused SVRG step against the unfused one, each from the same state
+    fused = make_train_step(bundle, tcfg, use_fused_update=True)
+    unfused = make_train_step(bundle, tcfg)
+    leaves = len(tree_leaves(state.params))
+    compare = []
+    fused_counts = dict.fromkeys(counts, 0)
+    for i in range(TRAIN_FUSED_STEPS):
+        batch = device_batch(ds.batch_at(TRAIN_STEPS + i), "cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        sf, mf = fused(state, batch)
+        torch.cuda.synchronize()
+        for key, n in read_counts().items():
+            fused_counts[key] += n
+        state, mu = unfused(state, batch)
+        gaps = {k: float((a - b).abs().max()) for (k, a), (_, b) in zip(
+            tree_flatten_with_path(sf.params),
+            tree_flatten_with_path(state.params))}
+        close = all(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6))
+                    for a, b in zip(tree_leaves(sf.params),
+                                    tree_leaves(state.params)))
+        compare.append(dict(
+            step=int(state.step) - 1, params_allclose=close,
+            max_abs_param_gap=max(gaps.values()),
+            metrics_fused={k: float(v) for k, v in mf.items()},
+            metrics_unfused={k: float(v) for k, v in mu.items()},
+            metrics_equal=all(bool(torch.equal(mf[k], mu[k])) for k in mu)))
+        del sf
+    fused_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # K1 over the whole tree, as the fused step launches it, against the
+    # unfused step's torch ops for the same update (v, then sgd's apply)
+    params, w_snap, g_snap = state.params, state.svrg.w_snap, state.svrg.g_snap
+    fourth = tree_map(torch.zeros_like, params)
+    lr = torch.tensor(TRAIN_LR, device="cuda")
+    opt = make_optimizer(tcfg)
+    k1_ms = median_ms(lambda: apply_tree(params, w_snap, g_snap, fourth, lr),
+                      reps=5, inner=1)
+    torch_ms = median_ms(lambda: opt.apply(
+        svrg_direction(w_snap, g_snap, fourth), {}, lr, params, state.step),
+        reps=5, inner=1)
+    n = tree_size(params)
+    k1_bound, k1_by = bound_ms(5 * tree_bytes(params) + 4 * sum(
+        x.numel() // x.shape[-1] if x.dim() else 1 for x in tree_leaves(params)),
+        4 * n)
+    del fourth
+    windows = _layer_flags(cfg).tolist()
+    rec = dict(phase="train", arch=cfg.name, layers=cfg.num_layers,
+               windows=windows, d_model=cfg.d_model, vocab=cfg.vocab_size,
+               params=n, leaves=leaves, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               dtype=cfg.dtype, param_dtype=cfg.param_dtype, remat=cfg.remat,
+               optimizer=tcfg.optimizer, lr=TRAIN_LR,
+               snapshot_every=TRAIN_SNAPSHOT_EVERY,
+               snapshot_batches=TRAIN_SNAPSHOT_BATCHES, steps=TRAIN_STEPS,
+               losses=losses, launches=counts, train_s=train_s,
+               step_s=step_s, step_has_snapshot=snap,
+               s_per_step=s_per_step, tokens_per_s=tokens / s_per_step,
+               tokens_per_s_with_snapshots=tokens * len(step_s) / sum(step_s),
+               peak_memory_gb_train=train_peak,
+               peak_memory_gb=fused_peak, fused_vs_unfused=compare,
+               fused_launches=fused_counts,
+               k1_launches_per_fused_step=fused_counts["svrg_update"]
+               / TRAIN_FUSED_STEPS,
+               k1_ms_per_fused_step=k1_ms, k1_bound_ms_per_fused_step=k1_bound,
+               k1_bound_by=k1_by, unfused_update_torch_ms=torch_ms,
+               tok_embed=tok_embed)
+    emit(**rec)
+    if not all(c["params_allclose"] and c["metrics_equal"] for c in compare):
+        raise AssertionError(f"fused and unfused train steps disagree: "
+                             f"{compare}")
+    if fused_counts != {"svrg_update": leaves * TRAIN_FUSED_STEPS,
+                        "logreg_grad": 0, "sweep_epoch": 0,
+                        "flash_attention": 0}:
+        raise AssertionError(f"fused train steps' launch counts "
+                             f"{fused_counts}, want {leaves} svrg_update "
+                             f"launches per step and nothing else")
+    return rec
+
+
+def phase_train_card_vs_cpu():
+    """The reduced gemma3-4b at 2 layers (one window-8 layer, one global),
+    float32, batch 4, sequence 64: one snapshot over 2 batches and 3 SVRG
+    steps on the card and on the CPU from the same state (drawn on the CPU,
+    copied to the card): loss per step rtol 1e-4, params atol 1e-5."""
+    from repro_torch.config import SVRGConfig, TrainConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic_lm import SyntheticLMDataset
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.state import (init_train_state, make_snapshot_fns,
+                                         make_train_step)
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = reduced_config(TRAIN_ARCH).with_overrides(num_layers=2,
+                                                    global_every=2)
+    tcfg = TrainConfig(steps=3, optimizer="svrg", learning_rate=0.05,
+                       warmup_steps=1, svrg=SVRGConfig(snapshot_batches=2))
+    ds = SyntheticLMDataset(cfg.vocab_size, 64, 4, seed=0)
+    cpu_state = init_train_state(torch.Generator().manual_seed(0),
+                                 build_model(cfg, "cpu"), tcfg)
+    results = {}
+    for device in ("cuda", "cpu"):
+        bundle = build_model(cfg, device)
+        state = tree_map(lambda t: t.to(device), cpu_state)
+        begin, accum, fin = make_snapshot_fns(bundle, tcfg)
+        step = make_train_step(bundle, tcfg)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state = begin(state)
+        for j in range(tcfg.svrg.snapshot_batches):
+            state = accum(state, device_batch(ds.batch_at(j), device))
+        state = fin(state)
+        losses = []
+        for i in range(tcfg.steps):
+            state, m = step(state, device_batch(ds.batch_at(i + 1), device))
+            losses.append(m["loss"])
+        losses = [float(x) for x in losses]
+        torch.cuda.synchronize()
+        results[device] = (losses, [x.cpu() for x in tree_leaves(state.params)],
+                           time.perf_counter() - t0, read_counts())
+    (l_card, p_card, card_s, counts), (l_cpu, p_cpu, cpu_s, _) = \
+        results["cuda"], results["cpu"]
+    gap = float(np.max(np.abs(np.subtract(l_card, l_cpu)) / np.abs(l_cpu)))
+    dp = max(float((a - b).abs().max()) for a, b in zip(p_card, p_cpu))
+    rec = dict(phase="train_card_vs_cpu", arch=cfg.name, layers=cfg.num_layers,
+               d_model=cfg.d_model, dtype=cfg.dtype, batch=4, seq=64,
+               steps=tcfg.steps, losses_card=l_card, losses_cpu=l_cpu,
+               loss_rel_gap=gap, max_abs_param_gap=dp, rtol_loss=1e-4,
+               atol_params=1e-5, launches_card=counts, card_s=card_s,
+               cpu_s=cpu_s)
+    emit(**rec)
+    if not (gap <= 1e-4 and dp <= 1e-5 and np.all(np.isfinite(l_card))):
+        raise AssertionError(f"training on the card and the CPU disagree: "
+                             f"{rec}")
+    if counts != {"svrg_update": 0, "logreg_grad": 0, "sweep_epoch": 0,
+                  "flash_attention": 0}:
+        raise AssertionError(f"train_card_vs_cpu launch counts {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only on "
@@ -1044,6 +1309,14 @@ def main() -> int:
     phase_serve_card_vs_cpu()
     emit(phase="serve_card_vs_cpu_done", seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
+    train_rec = phase_train()
+    emit(phase="train_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_train_card_vs_cpu()
+    emit(phase="train_card_vs_cpu_done", seconds=time.perf_counter() - t0)
+
     replaces = {"svrg_update": "src/repro/kernels/svrg_update/kernel.py:23",
                 "logreg_grad": "src/repro/kernels/logreg_grad/kernel.py:31",
                 "sweep_epoch": "src/repro/kernels/sweep_epoch/kernel.py:92",
@@ -1070,6 +1343,16 @@ def main() -> int:
         for extra in ("kernel_route", "yardstick_ms", "bare_ms"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
+    # K1 on the training path too: launches and time per fused step over
+    # the 12-layer tree, and alone at tok_embed's shape
+    kernels[0].update(
+        train_launches_per_fused_step=train_rec["k1_launches_per_fused_step"],
+        train_ms_per_fused_step=train_rec["k1_ms_per_fused_step"],
+        train_bound_ms_per_fused_step=train_rec["k1_bound_ms_per_fused_step"],
+        train_torch_ms_per_fused_step=train_rec["unfused_update_torch_ms"],
+        tok_embed_ms=train_rec["tok_embed"]["ms"],
+        tok_embed_plain_ms=train_rec["tok_embed"]["plain_ms"],
+        tok_embed_bound_ms=train_rec["tok_embed"]["bound_ms"])
     emit(phase="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

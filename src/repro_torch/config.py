@@ -1,12 +1,11 @@
 """Configuration the port reads: its own copies of the JAX package's
-`ModelConfig`, `SVRGConfig` and `ServeConfig` (the port imports nothing of
-that package). `SVRGConfig` lacks the fields of the SPMD variant
-(`core/distributed.py`), which is not ported yet; the shape, mesh, train
-and TPU hardware configs are not copied."""
+`ModelConfig`, `SVRGConfig`, `TrainConfig` and `ServeConfig`, field for
+field with the same defaults (the port imports nothing of that package).
+The shape, mesh and TPU hardware configs are not copied."""
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Tuple
 
 
@@ -109,7 +108,7 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class SVRGConfig:
-    """AsySVRG knobs (paper Algorithm 1).
+    """AsySVRG knobs (paper Algorithm 1 + the JAX package's SPMD adaptation).
 
     scheme:
       "consistent"    locked read+write (paper §4.1)
@@ -122,6 +121,36 @@ class SVRGConfig:
     tau: int = 0                  # bounded delay; 0 -> sequential SVRG
     inner_steps: int = 0          # M per thread; 0 -> 2n/p (paper §5.1)
     option: int = 2               # w_{t+1}: 1 = last iterate, 2 = average
+    # SPMD distributed variant
+    local_steps: int = 1          # H: reconcile every H inner steps (tau analogue)
+    snapshot_every: int = 100     # refresh (w_snap, g_snap) every N steps
+    snapshot_batches: int = 8     # reference batches accumulated per snapshot
+    compression: str = "none"     # "none" | "topk" | "randk" | "int8"
+    compression_k: float = 0.01   # fraction of coordinates kept
+    error_feedback: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    optimizer: str = "svrg"           # "svrg" | "sgd" | "momentum" | "adamw"
+    microbatches: int = 1             # gradient-accumulation splits of the
+                                      # global batch (activation peak ~ 1/mb)
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    schedule: str = "cosine"          # "constant" | "cosine" | "linear"
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    seed: int = 0
+    svrg: SVRGConfig = field(default_factory=SVRGConfig)
+    # fault tolerance
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    log_every: int = 10
 
 
 @dataclass(frozen=True)

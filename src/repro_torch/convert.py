@@ -9,7 +9,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import SVRGState
 from repro_torch.core.objective import LogisticRegression
+from repro_torch.train.state import TrainState
 
 
 def _leaf(tree, path: str):
@@ -60,3 +62,16 @@ def to_key(key, device=None) -> torch.Tensor:
     """A port key ([..., 2] int64) from a raw JAX key (uint32 [..., 2])."""
     return torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64),
                            device=device)
+
+
+def to_train_state(state, device) -> TrainState:
+    """The port's `TrainState` on ``device`` from the JAX package's (params,
+    opt_state, svrg, step; leaves numpy or any array): the same trees,
+    shapes, dtypes and values."""
+    svrg = None
+    if state.svrg is not None:
+        svrg = SVRGState(*(to_model_params(getattr(state.svrg, name), device)
+                           for name in SVRGState._fields))
+    return TrainState(params=to_model_params(state.params, device),
+                      opt_state=to_model_params(state.opt_state, device),
+                      svrg=svrg, step=to_model_params(state.step, device))

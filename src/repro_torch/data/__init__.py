@@ -4,6 +4,7 @@ from repro_torch.data.libsvm import (
     make_synthetic_libsvm,
     parse_libsvm_file,
 )
+from repro_torch.data.synthetic_lm import SyntheticLMDataset
 
 __all__ = ["PAPER_DATASETS", "LogRegDataset", "make_synthetic_libsvm",
-           "parse_libsvm_file"]
+           "parse_libsvm_file", "SyntheticLMDataset"]

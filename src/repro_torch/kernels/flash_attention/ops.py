@@ -16,6 +16,10 @@ strides (no repeat, no transpose), chosen by dtype and head width alone
 
 This is dispatch on dtype and shape, not a fallback: a failed build or
 launch of either kernel raises, and no route is tried after another.
+The kernels have no backward (nor has the JAX package's), and their output
+is a tensor autograd does not see: on CUDA tensors under grad that need a
+gradient, `gqa_flash` raises rather than return attention through which no
+gradient would flow. Training attends through `models.layers.attention`.
 Launches count in ``gqa_flash.launches`` and, per route, in
 ``gqa_flash.launches_by_route``.
 """
@@ -71,6 +75,12 @@ def gqa_flash(q, k, v, *, causal: bool = True, window: int = 0):
         vt = v.transpose(1, 2).repeat_interleave(G, dim=1)
         out = attention_ref(qt, kt, vt, causal=causal, window=window)
         return out.transpose(1, 2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "gqa_flash: the flash-attention kernel has no backward: it runs "
+            "outside autograd, so q, k and v would get no gradient. Attend "
+            "through models.layers.attention where a gradient is needed, or "
+            "call this under torch.no_grad()")
     _check_kernel_inputs(q, k, v)
     chosen = route(q.dtype, h)
     out = torch.empty((B, S, N, h), dtype=q.dtype, device=q.device)

@@ -6,6 +6,11 @@ counts every kernel launch in ``svrg_update.launches``. The engine calls it
 once per inner update, so its host path is what one update costs on the
 host: the checks below compare attributes and ints, and the launch passes
 one packed argument (`kernel.launch`).
+
+`apply_leaf` / `apply_tree` are the train step's fused update over a param
+tree: one `svrg_update` per floating-point leaf, the leaf viewed as
+``[numel // last_dim, last_dim]`` rows (the kernel takes any ``[C, d]``, so
+the JAX package's padding to (64, 128) tiles is dropped).
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.svrg_update import kernel
 from repro_torch.kernels.svrg_update.ref import svrg_update_ref
+from repro_torch.utils.tree import tree_map
 
 _F32 = torch.float32
 
@@ -89,3 +95,20 @@ def svrg_update(u, g, g0, gf, lr, wd: float = 0.0, *, ring=None, slot=None,
 
 
 svrg_update.launches = 0
+
+
+def apply_leaf(u, g, g0, gf, lr, wd: float = 0.0):
+    """u − lr·(g − g0 + gf + wd·u) for one param leaf of any shape (a 0-d or
+    1-d leaf is one row); ``lr`` a float or a 0-d float32 tensor on ``u``'s
+    device (no host read). A leaf that is not contiguous is copied first."""
+    shape = (-1, u.shape[-1]) if u.dim() >= 2 else (-1,)
+    out = svrg_update(*(t.contiguous().view(shape) for t in (u, g, g0, gf)),
+                      lr, wd)
+    return out.view(u.shape)
+
+
+def apply_tree(params, g, g0, gf, lr, wd: float = 0.0):
+    """`apply_leaf` over every leaf of the param tree: one launch per leaf
+    on the card."""
+    return tree_map(lambda u, a, b, c: apply_leaf(u, a, b, c, lr, wd),
+                    params, g, g0, gf)

@@ -1,7 +1,8 @@
 """Model factory: ``ModelConfig.family`` -> the family module, bundled as
-uniform (prefill, decode_step, param_defs, cache_defs) functions for the
-serve loop; the port of the JAX package's ``models/factory.py`` for the
-dense family. ``loss_fn`` and the input specs wait for the training slice.
+uniform (loss_fn, prefill, decode_step, param_defs, cache_defs, make_inputs)
+functions for the train loop and the serve loop; the port of the JAX
+package's ``models/factory.py`` for the dense family. ``input_specs`` (the
+dry-run's shape-only batch) waits for ``launch/dryrun``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.objective import default_device
-from repro_torch.sharding.rules import tree_map
+from repro_torch.utils.tree import tree_map
 
 # families the JAX package builds that the port does not yet, with the
 # ROADMAP item that brings each
@@ -33,9 +34,11 @@ class ModelBundle:
     device: torch.device                 # where params and caches live
     param_defs: Any                      # ParamDef dict
     cast: Callable                       # master params -> activation-dtype copies
+    loss_fn: Callable                    # (params, batch) -> scalar
     prefill_fn: Callable                 # (params, batch, cache_len) -> (logits, cache)
     decode_fn: Callable                  # (params, cache, tokens, pos) -> (logits, cache)
     cache_defs: Callable                 # (batch, seq) -> ParamDef dict
+    make_inputs: Callable                # (batch, seq, gen) -> concrete token batch
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
@@ -60,6 +63,23 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
         return tree_map(lambda x: x.to(act_dtype) if x.is_floating_point()
                         else x, params)
 
+    def loss_fn(params, batch):
+        """The cast is inside the loss, so gradients with respect to the
+        float32 master params come back in float32."""
+        return mod.loss_fn(cfg, cast(params), batch)
+
+    def make_inputs(batch: int, seq: int, gen: torch.Generator):
+        """A concrete LM batch on ``gen``'s device: tokens and targets drawn
+        in turn from ``gen`` in [0, vocab), mask ones (the JAX package's
+        ``_lm_inputs``, whose tokens and targets share one key)."""
+        shape = (batch, seq)
+        tokens, targets = (torch.randint(0, cfg.vocab_size, shape,
+                                         generator=gen, device=gen.device,
+                                         dtype=torch.int32) for _ in range(2))
+        return {"tokens": tokens, "targets": targets,
+                "mask": torch.ones(shape, dtype=torch.float32,
+                                   device=gen.device)}
+
     def prefill_fn(params, batch, cache_len):
         return mod.prefill(cfg, cast(params), batch["tokens"], cache_len)
 
@@ -70,5 +90,6 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
         return mod.cache_defs(cfg, batch, seq)
 
     return ModelBundle(cfg=cfg, device=device, param_defs=mod.param_defs(cfg),
-                       cast=cast, prefill_fn=prefill_fn, decode_fn=decode_fn,
-                       cache_defs=cache_defs)
+                       cast=cast, loss_fn=loss_fn, prefill_fn=prefill_fn,
+                       decode_fn=decode_fn, cache_defs=cache_defs,
+                       make_inputs=make_inputs)

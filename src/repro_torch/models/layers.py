@@ -7,8 +7,12 @@ dimension is taken in chunks so the score block is ``[B, K, G, chunk, S]``.
 The serve path's prefill goes through the flash-attention kernel instead
 (`models.transformer.block_apply`); decode attends here.
 
+Training attends here too, as the JAX package's training block does
+(`models.transformer.hidden_states`): the flash-attention kernel has no
+backward. ``lm_loss`` is the chunked cross-entropy of the training loss.
+
 The JAX package's sharding constraints are identities on one card and are
-dropped. ``lm_loss`` waits for the training slice.
+dropped.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 
@@ -183,3 +188,45 @@ def mlp(x, p: Dict, cfg: ModelConfig):
     if cfg.use_bias:
         y = y + p["b_down"]
     return y
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never materializes full [B,S,V] logits in f32)
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(h, embed, t, m, softcap: float):
+    """Σ of the masked token NLL of one sequence chunk; logits float32.
+    (`F.linear`'s backward gives the embedding's gradient contiguous, as
+    the fused update's kernel reads it; an einsum's comes back
+    transposed.)"""
+    logits = F.linear(h, embed).to(torch.float32)
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None].to(torch.int64))[..., 0]
+    return ((lse - gold) * m).sum()
+
+
+def lm_loss(hidden, embed, targets, mask, *, chunk: int = 512,
+            softcap: float = 0.0):
+    """Mean token cross-entropy. hidden [B,S,D], embed [V,D], targets [B,S]
+    int, mask [B,S]. Logits are taken in sequence chunks of ``chunk`` (the
+    whole sequence where ``chunk`` does not divide S, as in the JAX
+    package), and each chunk's body runs under activation checkpointing,
+    so the backward pass holds one chunk's ``[B, chunk, V]`` float32 logits
+    at a time, not every chunk's."""
+    B, S, D = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk != 0:
+        chunk = S  # fallback: single block
+    mask = mask.to(torch.float32)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        part = slice(i, i + chunk)
+        m = mask[:, part]
+        tot = tot + checkpoint(_chunk_nll, hidden[:, part], embed,
+                               targets[:, part], m, softcap,
+                               use_reentrant=False)
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,18 +1,23 @@
 """Dense decoder-only transformer (GQA + RoPE), the port of the JAX
-package's ``models/transformer.py`` for serving.
+package's ``models/transformer.py``.
 
 Covers chatglm3-6b, stablelm-12b, gemma3-4b (5:1 local:global) and
 command-r-plus-104b through `ModelConfig` knobs. Entry points:
 
+  * ``hidden_states`` / ``loss_fn`` — the training forward and its loss
   * ``prefill``      — a full prompt: last-position logits + KV cache
   * ``decode_step``  — one token against the cache, updated in place
 
 Params are the JAX package's nested dict with the same keys and layout, the
 layer weights stacked ``[L, ...]``; the JAX scan over layers is a Python
 loop over that leading dimension. KV caches are ``[L, B, K, S, h]``.
-Prefill attention goes through the flash-attention kernel (`gqa_flash`),
-decode attention through the plain `layers.attention`, as in the JAX
-package. ``hidden_states`` and ``loss_fn`` wait for the training slice.
+
+`block_apply` is the block body of training and prefill; its ``attend``
+argument is the one thing that differs. Prefill attends through the
+flash-attention kernel (`gqa_flash`, K4), which has no backward (nor has
+the JAX package's), so the training forward attends through the plain,
+differentiable `layers.attention`, as the JAX package's training block does.
+Decode attends through `layers.attention` too, in its own layer loop.
 """
 from __future__ import annotations
 
@@ -20,11 +25,13 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention.ops import gqa_flash
 from repro_torch.models import layers as nn
 from repro_torch.sharding.rules import ParamDef
+from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
 
 
 # ---------------------------------------------------------------------------
@@ -120,21 +127,36 @@ def _qk_normalize(cfg, p, q, k):
     return q, k
 
 
-def block_apply(cfg: ModelConfig, lp: Dict, h, pos, window: int):
-    """One transformer block at prefill; ``window`` 0 means global.
+def flash_attend(q, k, v, pos, window: int):
+    """Prefill attention through the flash-attention kernel. The positions
+    are ``arange(S)`` in every row, with no padding and no softcap, so
+    `gqa_flash` computes exactly what the JAX package's plain attention
+    computes there."""
+    return gqa_flash(q, k, v, causal=True, window=window)
 
-    The positions are ``arange(S)`` in every row, with no padding and no
-    softcap, so `gqa_flash` computes exactly what the JAX package's plain
-    attention computes here. Returns (h_out, (k, v)), the K/V for the cache.
-    (Decode does not call this: as in the JAX package, its layer writes the
-    new token's K/V into the cache before attending over it.)
+
+def plain_attend(q, k, v, pos, window: int):
+    """Training attention: the plain `layers.attention`, as the JAX
+    package's ``block_apply`` calls it."""
+    return nn.attention(q, k, v, pos, pos, causal=True, window=window,
+                        chunk_q=2048)
+
+
+def block_apply(cfg: ModelConfig, lp: Dict, h, pos, window: int,
+                attend=flash_attend):
+    """One transformer block; ``window`` 0 means global. ``attend(q, k, v,
+    pos, window)`` is the attention: `flash_attend` at prefill (the
+    default), `plain_attend` in training. Returns (h_out, (k, v)), the K/V
+    for the cache. (Decode does not call this: as in the JAX package, its
+    layer writes the new token's K/V into the cache before attending over
+    it.)
     """
     x = nn.apply_norm(cfg, h, lp["attn_norm"])
     q, k, v = nn.gqa_project(x, lp["attn"], cfg, cfg.use_qkv_bias)
     q, k = _qk_normalize(cfg, lp["attn"], q, k)
     q = nn.apply_rope(q, pos, cfg)
     k = nn.apply_rope(k, pos, cfg)
-    out = gqa_flash(q, k, v, causal=True, window=window)
+    out = attend(q, k, v, pos, window)
     h = h + nn.attn_output(out, lp["attn"], cfg.use_bias)
     x = nn.apply_norm(cfg, h, lp["mlp_norm"])
     h = h + nn.mlp(x, lp["mlp"], cfg)
@@ -152,6 +174,49 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 
 def unembed(cfg: ModelConfig, params):
     return params["tok_embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Training forward / loss
+# ---------------------------------------------------------------------------
+
+def _unstack(blocks: Dict, num_layers: int):
+    """Per-layer param dicts from the stacked ``[L, ...]`` leaves, by one
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing layer by layer would add a full-size gradient per
+    layer."""
+    leaves = [x.unbind(0) for x in tree_leaves(blocks)]
+    return [tree_unflatten_like(blocks, [leaf[i] for leaf in leaves])
+            for i in range(num_layers)]
+
+
+def _train_block(cfg: ModelConfig, lp: Dict, h, pos, window: int):
+    return block_apply(cfg, lp, h, pos, window, attend=plain_attend)[0]
+
+
+def hidden_states(cfg: ModelConfig, params, tokens, positions=None):
+    """Final-norm hidden states [B, S, D] of ``tokens`` [B, S]. Each block
+    runs under activation checkpointing when ``cfg.remat == "full"`` (the
+    JAX package's rematerialised scan): the backward pass keeps each
+    block's input and recomputes the rest, one block at a time."""
+    B, S = tokens.shape
+    pos = positions if positions is not None else _positions(
+        B, S, tokens.device)
+    h = embed_tokens(cfg, params, tokens)
+    layers = _unstack(params["blocks"], cfg.num_layers)
+    for lp, window in zip(layers, _layer_flags(cfg).tolist()):
+        if cfg.remat == "full":
+            h = checkpoint(_train_block, cfg, lp, h, pos, window,
+                           use_reentrant=False)
+        else:
+            h = _train_block(cfg, lp, h, pos, window)
+    return nn.apply_norm(cfg, h, params["final_norm"])
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    h = hidden_states(cfg, params, batch["tokens"])
+    return nn.lm_loss(h, unembed(cfg, params), batch["targets"],
+                      batch["mask"], softcap=cfg.logits_softcap)
 
 
 # ---------------------------------------------------------------------------

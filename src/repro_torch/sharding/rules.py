@@ -9,9 +9,11 @@ calls are identities on one card, so the port's models drop them.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.utils.tree import tree_map
 
 
 class ParamDef(NamedTuple):
@@ -47,16 +49,8 @@ def _init_one(gen: torch.Generator, d: ParamDef) -> torch.Tensor:
     raise ValueError(f"unknown init {d.init}")
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """``fn`` applied to every leaf of a nested dict, keys sorted at every
-    level (the JAX package's tree order)."""
-    if isinstance(tree, dict):
-        return {key: tree_map(fn, tree[key]) for key in sorted(tree)}
-    return fn(tree)
-
-
 def init_from_defs(gen: torch.Generator, defs):
     """Draw every ParamDef of a nested dict, in the JAX package's tree order,
     from ``gen`` on its device (a seeded ``torch.Generator``; the numbers
     differ from ``jax.random``'s, the rules do not)."""
-    return tree_map(lambda d: _init_one(gen, d), defs)
+    return tree_map(lambda d: _init_one(gen, d), defs, is_leaf=is_param_def)

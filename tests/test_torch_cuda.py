@@ -559,3 +559,94 @@ def test_serve_on_the_card_matches_cpu(gen, arch):
     out = generate(on_card, card_params, batch, 6, 48)
     assert gqa_flash.launches == before + cfg.num_layers
     assert torch.equal(out.cpu(), generate(on_cpu, params, batch, 6, 48))
+
+
+# ---------------------------------------------------------------------------
+# The training slice on the card
+# ---------------------------------------------------------------------------
+
+def test_flash_kernel_raises_under_autograd(gen):
+    """K4 has no backward: q, k or v that need a gradient make gqa_flash
+    raise on the card, before any launch; under no_grad it launches."""
+    q, k, v = _flash_inputs(gen, 1, 64, 4, 2, 32, torch.float32)
+    before = gqa_flash.launches
+    for needs in ("q", "k", "v"):
+        args = [t.clone().requires_grad_(name == needs)
+                for name, t in zip("qkv", (q, k, v))]
+        with pytest.raises(RuntimeError, match="no backward"):
+            gqa_flash(*args, causal=True, window=0)
+    assert gqa_flash.launches == before
+    with torch.no_grad():
+        gqa_flash(q.requires_grad_(), k, v, causal=True, window=0)
+    assert gqa_flash.launches == before + 1
+
+
+def test_apply_tree_equals_plain_bit_for_bit(gen):
+    """One svrg_update launch per leaf (0-d, 1-d, 2-d and 4-d leaves, float32
+    and bfloat16), a 0-d device step size, equal to the plain version."""
+    from repro_torch.kernels.svrg_update.ops import apply_tree
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    shapes = {"s": (), "v": (33,), "m": (7, 40), "t": (2, 5, 3, 16)}
+    trees = [{k: torch.randn(s, generator=gen, device="cuda")
+              for k, s in shapes.items()} for _ in range(4)]
+    for tree in trees:
+        tree["h"] = torch.randn((3, 24), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+    lr = torch.tensor(0.3, device="cuda")
+    before = svrg_update.launches
+    out = apply_tree(*trees, lr, 0.01)
+    assert svrg_update.launches == before + len(tree_leaves(trees[0]))
+    want = tree_map(lambda u, g, g0, gf: svrg_update_ref(u, g, g0, gf, lr,
+                                                         0.01), *trees)
+    for key in out:
+        assert out[key].shape == trees[0][key].shape
+        assert torch.equal(out[key], want[key]), key
+
+
+def test_two_layer_fused_step_equals_unfused(gen):
+    """The reduced gemma3-4b at 2 layers, float32, on the card: each fused
+    SVRG step (K1, one launch per leaf) against the unfused step from the
+    same state, clip active: params rtol 1e-5, atol 1e-6; metrics equal;
+    no flash-attention launch in training."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic_lm import SyntheticLMDataset
+    from repro_torch.models.factory import build_model
+    from repro_torch.config import TrainConfig
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.state import (init_train_state, make_snapshot_fns,
+                                         make_train_step)
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("gemma3-4b").with_overrides(num_layers=2,
+                                                     global_every=2)
+    bundle = build_model(cfg, "cuda")
+    tcfg = TrainConfig(steps=3, learning_rate=0.05, warmup_steps=1,
+                       grad_clip=0.05,
+                       svrg=SVRGConfig(snapshot_batches=2))
+    ds = SyntheticLMDataset(cfg.vocab_size, 32, 8)
+    state = init_train_state(gen, bundle, tcfg)
+    begin, accum, fin = make_snapshot_fns(bundle, tcfg)
+    state = begin(state)
+    for j in range(2):
+        state = accum(state, device_batch(ds.batch_at(j), "cuda"))
+    state = fin(state)
+    fused = make_train_step(bundle, tcfg, use_fused_update=True)
+    unfused = make_train_step(bundle, tcfg)
+    leaves = len(tree_leaves(state.params))
+    flash = gqa_flash.launches
+    for i in range(3):
+        b = device_batch(ds.batch_at(i + 1), "cuda")
+        before = svrg_update.launches
+        sf, mf = fused(state, b)
+        assert svrg_update.launches == before + leaves
+        state, mu = unfused(state, b)
+        assert float(mu["v_norm"]) > tcfg.grad_clip
+        for key in mu:
+            assert torch.equal(mf[key], mu[key]), (key, i)
+        for (k, a), (_, c) in zip(tree_flatten_with_path(sf.params),
+                                  tree_flatten_with_path(state.params)):
+            torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6,
+                                       msg=f"{k} step {i}")
+    assert gqa_flash.launches == flash

@@ -48,6 +48,31 @@ def test_port_imports_no_jax_and_no_repro():
     assert bad == "[]", bad
 
 
+# the modules of the training slice: each must be imported and scanned
+TRAINING_MODULES = (
+    "repro_torch.utils.tree", "repro_torch.utils.misc",
+    "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
+    "repro_torch.core.distributed", "repro_torch.train.state",
+    "repro_torch.train.loop", "repro_torch.checkpoint.checkpointer",
+    "repro_torch.data.synthetic_lm", "repro_torch.launch.train")
+
+_LIST_ALL = """
+import pkgutil, repro_torch
+print(" ".join(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                    "repro_torch.")))
+"""
+
+
+def test_checks_cover_the_training_modules():
+    proc = _run([sys.executable, "-c", _LIST_ALL], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    walked = set(proc.stdout.split())
+    scanned = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+               for p in PORT.rglob("*.py")}
+    for name in TRAINING_MODULES:
+        assert name in walked and name in scanned, name
+
+
 def test_source_never_names_jax_or_repro():
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())

@@ -6,6 +6,7 @@ on the card.
     python3 tools/profile_port.py batched      # the batched engine and K1's host path
     python3 tools/profile_port.py serve        # the serve path only
     python3 tools/profile_port.py sweep_epoch  # the fused engine and K3 only
+    python3 tools/profile_port.py train        # one SVRG train step only
 
 At the rcv1 width (n = 20242, p = 2048; data from
 `repro_torch.data.libsvm.make_synthetic_libsvm("rcv1")`):
@@ -50,6 +51,13 @@ At the rcv1 width (n = 20242, p = 2048; data from
     then 5 prefills in a row on a fresh session, each timed by the host
     clock around a synchronised call and by CUDA events, with the device
     allocations (`cudaMalloc`s of PyTorch's caching allocator) it made.
+
+The `train` mode (not part of the default run): gemma3-4b at full width
+and 12 layers, batch 2, sequence 2048 (chip_smoke.py's training phase), one
+snapshot over 2 batches, then one unfused and one fused SVRG step, each
+timed without and under the profiler from the same state; the device
+kernels are also summed by kind (matrix products, K1, elementwise,
+reductions and softmax, copies and fills, the rest).
 
 Prints one JSON line per configuration, and the card's name and power limit
 first. Needs a CUDA device; fails without one.
@@ -442,6 +450,63 @@ def profile_serve(decode_steps: int = 4) -> None:
                 "num_device_alloc", 0) - allocs}), flush=True)
 
 
+def _kinds(events, steps: int) -> dict:
+    """Device ms per step summed by kernel kind (by name)."""
+    from torch.autograd import DeviceType
+
+    kinds = {"matmul": ("gemm", "xmma", "cutlass", "cublas", "nvjet"),
+             "svrg_update": ("svrg_update",),
+             "softmax_reduce": ("softmax", "reduce", "logsumexp", "norm"),
+             "copy_fill": ("copy", "fill", "cat", "index", "gather",
+                           "scatter", "stack"),
+             "elementwise": ("elementwise", "vectorized", "unrolled")}
+    out = dict.fromkeys([*kinds, "other"], 0.0)
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        kind = next((k for k, keys in kinds.items()
+                     if any(key in name for key in keys)), "other")
+        out[kind] += _device_time_us(e) * 1e-3 / steps
+    return out
+
+
+def profile_train() -> None:
+    from repro_torch.config import SVRGConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic_lm import SyntheticLMDataset
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.state import (init_train_state, make_snapshot_fns,
+                                         make_train_step)
+
+    cfg = get_config("gemma3-4b").with_overrides(num_layers=12)
+    bundle = build_model(cfg, "cuda")
+    tcfg = TrainConfig(steps=5, optimizer="svrg", learning_rate=3e-3,
+                       warmup_steps=1, svrg=SVRGConfig(snapshot_batches=2))
+    ds = SyntheticLMDataset(cfg.vocab_size, 2048, 2, seed=0)
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             bundle, tcfg)
+    begin, accum, fin = make_snapshot_fns(bundle, tcfg)
+    state = begin(state)
+    for j in range(2):
+        state = accum(state, device_batch(ds.batch_at(j), "cuda"))
+    state = fin(state)
+    batch = device_batch(ds.batch_at(2), "cuda")
+    for fused in (False, True):
+        step = make_train_step(bundle, tcfg, use_fused_update=fused)
+        torch.cuda.reset_peak_memory_stats()
+        wall, prof_wall, events = _profiled(lambda: step(state, batch))
+        print(json.dumps({"train": "fused" if fused else "unfused",
+                          "arch": cfg.name, "layers": cfg.num_layers,
+                          "batch": 2, "seq": 2048, "wall_s": wall,
+                          "profiled_wall_s": prof_wall,
+                          "peak_memory_gb":
+                              torch.cuda.max_memory_allocated() / 1e9,
+                          "device_ms_by_kind": _kinds(events, 1),
+                          **_summary(events, prof_wall, 1)}), flush=True)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -455,6 +520,9 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     if argv == ["serve"]:
         profile_serve()
+        return 0
+    if argv == ["train"]:
+        profile_train()
         return 0
     ds = make_synthetic_libsvm("rcv1", scale=1.0)
     obj = LogisticRegression(ds.X, ds.y, ds.l2_reg)
