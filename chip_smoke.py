@@ -14,8 +14,9 @@ the ring and the staged rows that fits, bit-equal at the main path's shape;
 its in-kernel generator bit for bit against `repro_torch.prng`), and
 `flash_attention` at gemma3-4b's prefill shapes (windows 0 and 1024, bf16
 on the tensor-core kernel and float32 on the CUDA-core one, a ragged
-length, GQA 16:1), timed beside its plain version, the CUDA-core kernel on
-the same bf16 inputs and `scaled_dot_product_attention`; the tensor-core
+length, GQA 16:1) and deepseek-moe-16b's (MHA, h = 128, global), timed
+beside its plain version, the CUDA-core kernel on the same bf16 inputs and
+`scaled_dot_product_attention`; the tensor-core
 library's SASS must hold `HGMMA` and `UTMALDG`, the sweep library's the bulk
 copy, the L2 prefetch and the mbarrier wait, the gradient library's the bulk
 copy and the mbarrier wait, the last two with no register spills. It
@@ -62,7 +63,29 @@ and the training path at gemma3-4b's full width, depth cut to 12 layers
     tree beside its bound and the unfused step's torch ops, and K1 alone
     at `tok_embed`'s shape, bit-equal to its plain version;
   * a 2-layer float32 model (the reduced config) trained 3 SVRG steps on
-    the card and on the CPU from the same state: losses and params.
+    the card and on the CPU from the same state: losses and params;
+
+and the mixture-of-experts family at deepseek-moe-16b's full width (64
+experts, top 6, 2 shared, MHA at h = 128; the earlier phases' tensors
+released first):
+
+  * `launch.serve.run` at all 28 layers, which draws the weights in bf16
+    (float32 masters would not fit beside their bf16 copy), batch 4, prompt
+    2048, 16 new tokens: 28 `flash_attention` launches per prefill, all on
+    the tensor-core route, none in decode; prefill seconds, decode ms per
+    token, tokens/s, peak memory (the weights' draw included);
+  * 2 layers (the dense one, one MoE layer) in bf16, batch 1, prompt 2048:
+    the prefill logits through the tensor-core kernel against the plain
+    attention in float32 (the bf16 plain attention's gap recorded beside:
+    its bf16 scores fail at deepseek's score scale); then in float32,
+    batch 2, prompt 512 (two routing groups a row), 4 new
+    tokens, on the card and on the CPU from the same weights: logits and
+    greedy tokens, and each MoE layer's chosen experts, a difference
+    allowed only at a near-tie of the router's probabilities (the logits
+    then compared over the rows whose routes agree, at least one);
+  * 2 layers, float32 params, bf16 activations, rematerialised, batch 2,
+    sequence 2048: 2 fused SVRG steps against 2 unfused ones from the same
+    state, one K1 launch per leaf (the expert leaves included), no K4.
 
 `sweep_epoch` is held against its plain version at the main path's shape
 (the 4-row rcv1 group, 40480 inner updates); its other cases (Hogwild!,
@@ -82,6 +105,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -459,6 +483,10 @@ def check_draws(ds):
 SERVE_ARCH = "gemma3-4b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 16
 LAYER_MIX = {1024: 29, 0: 5}
+# deepseek-moe-16b's prefill at the same batch and prompt: 28 global MHA
+# layers (N = K = 16, h = 128), the tensor-core kernel's h = 128 instance
+MOE_ARCH, MOE_LAYERS = "deepseek-moe-16b", 28
+MOE_K4_CASE = "moe_global_bf16"
 
 
 def attention_pairs(S: int, window: int) -> int:
@@ -468,17 +496,73 @@ def attention_pairs(S: int, window: int) -> int:
     return int(np.minimum(rows, window).sum() if window else rows.sum())
 
 
+# bf16 flash_attention against the plain attention computed in float32
+# from the same bf16 q, k, v: each element within BF16_ATOL + BF16_RTOL ·
+# |ref| and each row (one query position of one head, h values) within
+# BF16_ROW_REL in relative norm. The output's bf16 rounding alone is up to
+# 2^-9 relative per element; the probabilities' bf16 rounding before the
+# product with v adds the rest. The limits stand about 1.5x above the
+# largest gaps the kernel shows on the H100 (this script's `atol_needed`
+# and `max_row_rel_err`, which match `scaled_dot_product_attention`'s on
+# the same inputs). Late rows of a long causal prefill are small (~0.04 at
+# S = 2048), so the row norm is what sees a fault confined to them.
+BF16_ATOL, BF16_RTOL, BF16_ROW_REL = 4e-3, 1e-2, 5e-3
+F32_TOL = 2e-5         # float32 on the CUDA-core route: summation order
+
+
+def attention_gaps(out, ref):
+    """(max |out - ref| - BF16_RTOL·|ref|, the largest row's ||out - ref||
+    / ||ref||) of ``out`` against the float32 ``ref``, rows along the last
+    dim."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    elem = float((diff - BF16_RTOL * ref.abs()).max())
+    row = float((diff.norm(dim=-1) / ref.norm(dim=-1)).max())
+    return elem, row
+
+
+def planted_faults(q, k, v, out, window):
+    """Two faults the bf16 limit must reject, made from this case's inputs:
+    each query block's last KV tile dropped on the rows of the second half
+    (the attention there computed in float32 without those keys, rounded
+    to bf16), and the kernel's output 2% too large: {name: faulty
+    output}."""
+    B, S, N, h = q.shape
+    bk = 32 if h >= 192 else 64   # the tensor-core kernel's keys per tile
+    pos = torch.arange(S, device=q.device)
+    i, j = pos[:, None], pos[None, :]
+    ok = i >= j
+    if window:
+        ok &= (i - j) < window
+    ok &= ~((i >= S // 2) & (j >= (i // 64) * 64 + 64 - bk))
+    G = N // k.shape[2]
+    qt = q.float().transpose(1, 2)
+    kt, vt = (t.float().transpose(1, 2).repeat_interleave(G, dim=1)
+              for t in (k, v))
+    scores = (qt @ kt.transpose(-1, -2)) / float(np.sqrt(h))
+    probs = torch.softmax(scores.masked_fill(~ok, float("-inf")), dim=-1)
+    del scores
+    dropped = (probs @ vt).transpose(1, 2).to(q.dtype)
+    del probs
+    return {"last_kv_tile_dropped_past_half": dropped,
+            "output_2pct_too_large": (out.float() * 1.02).to(out.dtype)}
+
+
 def flash_attention_vs_plain(gen):
     """flash_attention against its plain version on the same CUDA tensors:
     at the serve path's shapes (B 4, S 2048, N 8, K 4, h 256; windows 1024
-    and 0) in bf16 on the tensor-core route (atol/rtol 3e-2: the plain
-    version rounds the scores to bf16, the kernel keeps them in float32)
-    and float32 on the CUDA-core route (2e-5, summation order), a ragged
-    S = 2000 and GQA 16:1 at h = 128. The bf16 main cases are timed beside
-    the plain version, the CUDA-core kernel on the same bf16 inputs (the
-    kernel before the tensor-core one) and `scaled_dot_product_attention`
-    (the yardstick; the port never calls it). Returns the kernel's record,
-    per launch averaged over one prefill's 34 layers."""
+    and 0) in bf16 on the tensor-core route (against the plain attention
+    in float32 on the same bf16 inputs, within the BF16_* limits; the
+    planted faults of `planted_faults` must fail them) and float32 on the
+    CUDA-core route (F32_TOL), a ragged S = 2000, GQA 16:1 at h = 128, and
+    deepseek-moe-16b's prefill shape (B 4, S 2048, N = K = 16, h 128,
+    global; bf16). The bf16 main
+    cases and deepseek's are timed beside the plain version, the CUDA-core
+    kernel on the same bf16 inputs (the kernel before the tensor-core one)
+    and `scaled_dot_product_attention` (the yardstick; the port never calls
+    it). Returns the kernel's record, per launch averaged over one gemma3-4b
+    prefill's 34 layers, with deepseek's case under ``moe`` (28 launches a
+    prefill)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel
@@ -492,27 +576,51 @@ def flash_attention_vs_plain(gen):
                              ).transpose(1, 2)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    # (name, B, S, N, K, h, window, dtype, tol, timed)
-    cases = [("serve_window_bf16", 4, 2048, 8, 4, 256, 1024, bf16, 3e-2, True),
-             ("serve_global_bf16", 4, 2048, 8, 4, 256, 0, bf16, 3e-2, True),
-             ("serve_window_f32", 4, 2048, 8, 4, 256, 1024, f32, 2e-5, False),
-             ("serve_global_f32", 4, 2048, 8, 4, 256, 0, f32, 2e-5, False),
-             ("ragged_S2000_window_bf16", 4, 2000, 8, 4, 256, 1024, bf16, 3e-2,
+    # (name, B, S, N, K, h, window, dtype, timed)
+    cases = [("serve_window_bf16", 4, 2048, 8, 4, 256, 1024, bf16, True),
+             ("serve_global_bf16", 4, 2048, 8, 4, 256, 0, bf16, True),
+             ("serve_window_f32", 4, 2048, 8, 4, 256, 1024, f32, False),
+             ("serve_global_f32", 4, 2048, 8, 4, 256, 0, f32, False),
+             ("ragged_S2000_window_bf16", 4, 2000, 8, 4, 256, 1024, bf16,
               False),
-             ("gqa_16to1_h128_bf16", 4, 2048, 16, 1, 128, 0, bf16, 3e-2, False)]
+             ("gqa_16to1_h128_bf16", 4, 2048, 16, 1, 128, 0, bf16, False),
+             (MOE_K4_CASE, 4, 2048, 16, 16, 128, 0, bf16, True)]
     timed = {}
-    for name, B, S, N, K, h, window, dtype, tol, time_it in cases:
+    for name, B, S, N, K, h, window, dtype, time_it in cases:
         q = torch.randn((B, S, N, h), generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn((B, S, K, h), generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
         before = dict(gqa_flash.launches_by_route)
         out = gqa_flash(q, k, v, window=window)
-        ref = plain(q, k, v, window)
+        ref = plain(q.float(), k.float(), v.float(), window)
         torch.cuda.synchronize()
         (route,) = [r for r, n in gqa_flash.launches_by_route.items()
                     if n != before[r]]
-        diff = (out.float() - ref.float()).abs()
-        ok = bool((diff <= tol + tol * ref.float().abs()).all())
+        diff = (out.float() - ref).abs()
+        if dtype == bf16:
+            elem, row = attention_gaps(out, ref)
+            ok = elem <= BF16_ATOL and row <= BF16_ROW_REL
+            limit = dict(against="plain attention in float32", atol=BF16_ATOL,
+                         rtol=BF16_RTOL, row_rel=BF16_ROW_REL,
+                         atol_needed=elem, max_row_rel_err=row)
+            bf16_ref = plain(q, k, v, window).float()
+            faults = {}
+            for fault, bad in planted_faults(q, k, v, out, window).items():
+                bad_elem, bad_row = attention_gaps(bad, ref)
+                bad_diff = (bad.float() - bf16_ref).abs()
+                faults[fault] = dict(
+                    atol_needed=bad_elem, max_row_rel_err=bad_row,
+                    rejected=not (bad_elem <= BF16_ATOL
+                                  and bad_row <= BF16_ROW_REL),
+                    passes_flat_3e_2=bool(
+                        (bad_diff <= 3e-2 + 3e-2 * bf16_ref.abs()).all()))
+                del bad, bad_diff
+            del bf16_ref
+            limit["planted_faults"] = faults
+        else:
+            ok = bool((diff <= F32_TOL + F32_TOL * ref.abs()).all())
+            limit = dict(against="plain attention", atol=F32_TOL,
+                         rtol=F32_TOL)
         size = q.element_size()
         pairs = B * N * attention_pairs(S, window)
         bnd, by = bound_ms(size * (2 * B * S * N * h + 2 * B * S * K * h),
@@ -520,8 +628,8 @@ def flash_attention_vs_plain(gen):
                            BF16_FLOP_PER_S if dtype == bf16 else FP32_FLOP_PER_S)
         rec = dict(kernel="flash_attention", case=name, B=B, S=S, N=N, K=K,
                    h=h, window=window, dtype=str(dtype).replace("torch.", ""),
-                   kernel_route=route,
-                   atol=tol, rtol=tol, max_abs_err=float(diff.max()),
+                   kernel_route=route, **limit,
+                   max_abs_err=float(diff.max()),
                    within_tol=ok, finite=bool(torch.isfinite(out).all()),
                    pairs=pairs, bound_ms=bnd, bound_by=by)
         if time_it:
@@ -559,13 +667,20 @@ def flash_attention_vs_plain(gen):
                 library_max_abs_err=float((library().transpose(1, 2).float()
                                            - ref.float()).abs().max()))
             rec["ms_over_library_ms"] = ms / rec["library_ms"]
-            timed[window] = rec
+            timed[name] = rec
         emit(phase="kernels_vs_plain", **rec)
         want = "wgmma" if dtype == bf16 else "simt"
         if not (ok and rec["finite"] and route == want):
             raise AssertionError(f"flash_attention disagrees: {rec}")
+        if dtype == bf16 and not all(f["rejected"]
+                                     for f in limit["planted_faults"].values()):
+            raise AssertionError(f"flash_attention's bf16 limit lets a planted "
+                                 f"fault pass: {rec}")
+    moe_rec = timed.pop(MOE_K4_CASE)
+    by_window = {t["window"]: t for t in timed.values()}
     layers = sum(LAYER_MIX.values())
-    mix = {key: sum(n * timed[w][key] for w, n in LAYER_MIX.items()) / layers
+    mix = {key: sum(n * by_window[w][key] for w, n in LAYER_MIX.items())
+           / layers
            for key in ("ms", "plain_ms", "simt_ms", "library_ms", "bound_ms")}
     (bound_by,) = {t["bound_by"] for t in timed.values()}
     rec = dict(kernel="flash_attention", case="serve_prefill_mix",
@@ -576,7 +691,15 @@ def flash_attention_vs_plain(gen):
                per_prefill_ms=mix["ms"] * layers,
                per_prefill_simt_ms=mix["simt_ms"] * layers,
                per_prefill_library_ms=mix["library_ms"] * layers,
-               per_prefill_bound_ms=mix["bound_ms"] * layers)
+               per_prefill_bound_ms=mix["bound_ms"] * layers,
+               moe={key: moe_rec[key] for key in (
+                   "ms", "plain_ms", "simt_ms", "library_ms", "bound_ms",
+                   "bound_by", "max_abs_err", "share_of_bound",
+                   "ms_over_library_ms")})
+    rec["moe"].update(
+        layers=MOE_LAYERS, per_prefill_ms=moe_rec["ms"] * MOE_LAYERS,
+        per_prefill_library_ms=moe_rec["library_ms"] * MOE_LAYERS,
+        per_prefill_bound_ms=moe_rec["bound_ms"] * MOE_LAYERS)
     emit(phase="kernels_vs_plain", **rec)
     return rec
 
@@ -795,33 +918,33 @@ def greedy_steps(bundle, params, batch, cache_len: int, new_tokens: int):
     return logits, torch.stack(toks, dim=1)
 
 
-def phase_serve(report):
-    """The serve path at gemma3-4b's full width through `launch.serve.run`
-    (the CLI's function: build_model, init_from_defs, prompts from
-    prng.randint, generate): one flash_attention launch per prefill layer,
-    each on the tensor-core route, none in decode. Then the same session
-    stepped by hand, synchronised after the prefill and after the decodes,
-    for the split of the time."""
+def drive_serve(phase, arch, k4_ms_per_prefill):
+    """The serve path at full width through `launch.serve.run` (the CLI's
+    function: build_model, init_from_defs, prompts from prng.randint,
+    generate), batch 4, prompt 2048, 16 new tokens: one flash_attention
+    launch per prefill layer, each on the tensor-core route, none in decode,
+    no other kernel. Then the same session stepped by hand, synchronised
+    after the prefill and after the decodes, for the split of the time, and
+    three warm prefills. Returns (config, launch counts of `generate`)."""
     from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.launch.serve import run
-    from repro_torch.models.transformer import _layer_flags
     from repro_torch.serve.loop import ServeSession
+    from repro_torch.utils.tree import tree_leaves
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    res = run(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+    res = run(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
               new_tokens=SERVE_NEW, device="cuda")
     counts = read_counts()
     routes = dict(gqa_flash.launches_by_route)
     cfg, bundle, params = res["cfg"], res["bundle"], res["params"]
-    windows = _layer_flags(cfg).tolist()
     want = {"svrg_update": 0, "logreg_grad": 0, "sweep_epoch": 0,
             "flash_attention": cfg.num_layers}
-    if counts != want or {w: windows.count(w) for w in set(windows)} != LAYER_MIX:
-        raise AssertionError(f"serve launch counts {counts} != {want}")
+    if counts != want:
+        raise AssertionError(f"{phase} launch counts {counts} != {want}")
     if routes != {"wgmma": cfg.num_layers, "simt": 0}:
-        raise AssertionError(f"serve flash_attention routes {routes}")
+        raise AssertionError(f"{phase} flash_attention routes {routes}")
 
     cache_len = SERVE_PROMPT + SERVE_NEW
     batch = {"tokens": res["prompts"]}
@@ -859,11 +982,12 @@ def phase_serve(report):
         torch.cuda.synchronize()
         repeats.append((time.perf_counter() - t0,
                         start.elapsed_time(stop) / 1e3))
-    k4 = report["flash_attention"]["per_prefill_ms"]
-    rec = dict(phase="serve", arch=cfg.name, layers=cfg.num_layers,
+    rec = dict(phase=phase, arch=cfg.name, layers=cfg.num_layers,
                d_model=cfg.d_model, vocab=cfg.vocab_size, batch=SERVE_BATCH,
                prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, cache_len=cache_len,
-               dtype=cfg.dtype, launches=counts, flash_routes=routes,
+               dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+               params=sum(x.numel() for x in tree_leaves(params)),
+               launches=counts, flash_routes=routes,
                flash_routes_prefill=prefill_routes,
                generate_s=res["seconds"], tokens_per_s=res["tokens_per_s"],
                prefill_s=prefill_s,
@@ -873,7 +997,10 @@ def phase_serve(report):
                flash_launches_prefill=after_prefill["flash_attention"],
                flash_launches_decode=(after_decode["flash_attention"]
                                       - after_prefill["flash_attention"]),
-               k4_ms_per_prefill=k4, k4_share_of_prefill=k4 / (1e3 * prefill_s),
+               k4_ms_per_prefill=k4_ms_per_prefill,
+               k4_share_of_prefill=k4_ms_per_prefill / (1e3 * prefill_s),
+               k4_share_of_prefill_events=k4_ms_per_prefill / (
+                   1e3 * min(e for _, e in repeats)),
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                logits_finite=bool(finite),
                tokens=res["tokens"][:, :8].tolist(),
@@ -881,31 +1008,124 @@ def phase_serve(report):
                                                          res["tokens"])))
     emit(**rec)
     if not rec["logits_finite"]:
-        raise AssertionError("serve: non-finite logits")
+        raise AssertionError(f"{phase}: non-finite logits")
     if (rec["flash_launches_prefill"], rec["flash_launches_decode"]) != \
             (cfg.num_layers, 0) or prefill_routes != routes:
-        raise AssertionError(f"serve: flash launches {after_prefill} after "
+        raise AssertionError(f"{phase}: flash launches {after_prefill} after "
                              f"prefill, {after_decode} after decode")
     if tuple(res["tokens"].shape) != (SERVE_BATCH, SERVE_NEW) \
             or res["tokens"].dtype != torch.int32 \
             or not rec["stepwise_equals_generate"]:
-        raise AssertionError("serve: generate and the stepped session differ")
+        raise AssertionError(f"{phase}: generate and the stepped session "
+                             "differ")
+    return cfg, counts
+
+
+def phase_serve(report):
+    """gemma3-4b at full width and depth (34 layers: 29 window-1024 and 5
+    global)."""
+    from repro_torch.models.transformer import _layer_flags
+
+    cfg, counts = drive_serve("serve", SERVE_ARCH,
+                              report["flash_attention"]["per_prefill_ms"])
+    windows = _layer_flags(cfg).tolist()
+    if {w: windows.count(w) for w in set(windows)} != LAYER_MIX:
+        raise AssertionError(f"serve: layer windows {windows}")
     return counts
 
 
-def phase_serve_bf16_vs_plain():
-    """gemma3-4b at full width and 2 layers (one window-1024 layer, one
-    global) in bf16, batch 1, prompt 2048: the prefill logits with attention
-    through the tensor-core kernel against the same prefill, same weights,
-    with the plain attention (`ref.attention_ref`) on the card. Limit: the
-    relative gap ||a - b|| / ||b|| <= 2e-2. The two attentions differ by
-    bf16 roundings (the plain version rounds its scores to bf16, the kernel
-    does not; max |dO| ~ 1.6e-2 at |O| ~ 2-4 in the kernel check), about
-    four bf16 ulps after two layers. A third prefill, with the attention
-    in float32 (output rounded to bf16), shows which of the two it is
-    nearer."""
+def release_memory():
+    """Free what earlier phases left to the caching allocator, so the next
+    phase's weights fit."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_moe(report):
+    """deepseek-moe-16b at full width and depth (28 layers: 1 dense, 27 MoE
+    with 64 experts, top 6, 2 shared; MHA, h = 128). `launch.serve.run`
+    draws the weights in bf16 (the float32 masters, 65.5 GB, and their
+    bf16 copy would not fit 80 GB; no width is changed). The peak memory
+    covers the weights' draw."""
+    release_memory()
+    cfg, counts = drive_serve(
+        "serve_moe", MOE_ARCH,
+        report["flash_attention"]["moe"]["per_prefill_ms"])
+    if cfg.num_layers != MOE_LAYERS:
+        raise AssertionError(f"serve_moe: {cfg.num_layers} layers")
+    return counts
+
+
+@contextmanager
+def recorded_routes():
+    """Every MoE routing (`models.moe.route`) made inside the block, copied
+    to the CPU, in call order (none for a dense model)."""
+    from repro_torch.models import moe
+
+    seen, real = [], moe.route
+
+    def spy(*args, **kw):
+        r = real(*args, **kw)
+        seen.append(moe.Routing(*(t.detach().cpu() for t in r)))
+        return r
+
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+NEAR_TIE = 1e-5     # relative gap of two router probabilities called a tie
+
+
+def route_flips(got, want):
+    """Tokens whose chosen experts (``topi``, in rank order) differ between
+    two runs' routings of the same calls: per token its call, batch row,
+    group and position, the first rank r that differs, and the relative
+    gap between the r-th and (r+1)-th largest router probabilities in each
+    run (a near-tie if both are within NEAR_TIE)."""
+    flips = []
+    for call, (a, b) in enumerate(zip(got, want)):
+        for idx in (a.topi != b.topi).any(-1).nonzero().tolist():
+            at = tuple(idx)
+            r = int((a.topi[at] != b.topi[at]).nonzero()[0])
+            gaps = []
+            for run in (a, b):
+                p = torch.sort(run.probs[at], descending=True).values
+                gaps.append(float((p[r] - p[r + 1]) / p[r]))
+            flips.append(dict(call=call, row=idx[0], group=idx[1],
+                              token=idx[2], rank=r, rel_gaps=gaps,
+                              near_tie=max(gaps) <= NEAR_TIE))
+    return flips
+
+
+def prefill_kernel_vs_plain(phase, cfg, seed, against="plain"):
+    """``cfg`` (full width, 2 layers) in bf16, batch 1, prompt 2048: the
+    prefill logits with attention through the tensor-core kernel against
+    the same prefill, same weights, with the plain attention on the card:
+    ``against="plain"``, `ref.attention_ref` on the bf16 q, k, v (the JAX
+    package's oracle, which rounds the scores to bf16); ``"float32"``, the
+    same plain attention on q, k, v cast to float32, output rounded to bf16
+    (the function of the TPU kernel, which computes the scores and the
+    softmax in float32). Limit: the relative gap ||a - b|| / ||b|| <= 2e-2;
+    against float32 the kernel must also be nearer to it than the bf16
+    plain attention is. All three prefills run, and every gap is recorded.
+
+    Where the scores stay small (gemma3-4b: QK-norm) the kernel and the
+    bf16 plain attention differ by bf16 roundings (max |dO| ~ 1.6e-2 at
+    |O| ~ 2-4 in the kernel check), about four bf16 ulps after two layers.
+    Without QK-norm, the init rule's std 1/sqrt(L) is 1 in a one-layer
+    stack, and deepseek-moe-16b's scores reach the thousands
+    (``max_abs_score``), where bf16's spacing is 8 or more: the bf16
+    plain attention then departs from the float32 one, and the kernel,
+    whose scores stay float32, does not. For a MoE model the tokens whose
+    experts differ between the kernel's and the bf16 plain prefill are
+    counted."""
     from repro_torch import prng
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import transformer
@@ -922,6 +1142,14 @@ def phase_serve_bf16_vs_plain():
                              window=window).transpose(1, 2)
 
     def f32_gqa(q, k, v, *, causal=True, window=0):
+        # the largest scaled score q.k / sqrt(h) of the layer on or below
+        # the diagonal, in float32
+        G = q.shape[2] // k.shape[2]
+        scores = torch.einsum("bqnh,bknh->bnqk", q.float(),
+                              k.float().repeat_interleave(G, dim=2))
+        max_abs_score.append(float(scores.abs().tril().max())
+                             / q.shape[-1] ** 0.5)
+        del scores
         return plain_gqa(q.float(), k.float(), v.float(), causal=causal,
                          window=window).to(q.dtype)
 
@@ -936,77 +1164,165 @@ def phase_serve_bf16_vs_plain():
     def rel_gap(a, b):
         return float((a - b).norm() / b.norm())
 
-    cfg = get_config(SERVE_ARCH).with_overrides(num_layers=2, global_every=2)
     bundle = build_model(cfg, "cuda")
-    params = init_from_defs(torch.Generator(device="cuda").manual_seed(2),
+    params = init_from_defs(torch.Generator(device="cuda").manual_seed(seed),
                             bundle.param_defs)
-    batch = {"tokens": prng.randint(prng.PRNGKey(2), (1, SERVE_PROMPT), 0,
+    batch = {"tokens": prng.randint(prng.PRNGKey(seed), (1, SERVE_PROMPT), 0,
                                     cfg.vocab_size)}
     before = dict(gqa_flash.launches_by_route)
-    kern = ServeSession(bundle, params, SERVE_PROMPT).prefill(batch).float()
+    with recorded_routes() as kern_routes:
+        kern = ServeSession(bundle, params, SERVE_PROMPT).prefill(batch).float()
     torch.cuda.synchronize()
     routes = {r: n - before[r] for r, n in gqa_flash.launches_by_route.items()}
-    ref = prefill_with(plain_gqa)
-    f32 = prefill_with(f32_gqa)
+    with recorded_routes() as plain_routes:
+        plain = prefill_with(plain_gqa)
+    max_abs_score = []
+    with recorded_routes() as f32_routes:
+        f32 = prefill_with(f32_gqa)
     torch.cuda.synchronize()
+    ref = {"plain": plain, "float32": f32}[against]
     rel = rel_gap(kern, ref)
-    rec = dict(phase="serve_bf16_vs_plain", arch=cfg.name,
+    rec = dict(phase=phase, arch=cfg.name,
                layers=cfg.num_layers, windows=_layer_flags(cfg).tolist(),
                batch=1, prompt=SERVE_PROMPT, dtype=cfg.dtype, routes=routes,
-               rel_tol=2e-2, rel_logit_gap=rel,
+               against=against, rel_tol=2e-2, rel_logit_gap=rel,
+               rel_gap_kernel_vs_plain=rel_gap(kern, plain),
                rel_gap_kernel_vs_f32_attention=rel_gap(kern, f32),
-               rel_gap_plain_vs_f32_attention=rel_gap(ref, f32),
+               rel_gap_plain_vs_f32_attention=rel_gap(plain, f32),
+               max_abs_score=max_abs_score,
                max_abs_logit_gap=float((kern - ref).abs().max()),
                max_abs_logit=float(ref.abs().max()),
                argmax_equal=bool(torch.equal(kern.argmax(-1), ref.argmax(-1))),
-               finite=bool(torch.isfinite(kern).all()))
+               finite=bool(torch.isfinite(kern).all()),
+               moe_layer_calls=len(kern_routes),
+               tokens_with_other_experts_vs_plain=len(
+                   route_flips(kern_routes, plain_routes)),
+               tokens_with_other_experts_vs_f32=len(
+                   route_flips(kern_routes, f32_routes)),
+               of_tokens=SERVE_PROMPT * len(kern_routes))
     emit(**rec)
-    if not (rel <= 2e-2 and rec["finite"]
+    nearer = against == "plain" or \
+        rec["rel_gap_kernel_vs_f32_attention"] <= \
+        rec["rel_gap_plain_vs_f32_attention"]
+    if not (rel <= 2e-2 and nearer and rec["finite"]
             and routes == {"wgmma": cfg.num_layers, "simt": 0}):
-        raise AssertionError(f"bf16 prefill, kernel against plain: {rec}")
+        raise AssertionError(f"bf16 prefill, kernel against {against}: "
+                             f"{rec}")
 
 
-def phase_serve_card_vs_cpu():
-    """The serve path at full width and 2 layers (one window-1024 layer, one
-    global), float32, batch 1, prompt 2048, 4 new tokens, on the card and on
-    the CPU from the same weights: prefill and decode logits within rtol
-    1e-3, atol 5e-4 (cache against recompute's tolerance in
-    tests/test_models_smoke.py), greedy tokens equal."""
-    from repro_torch import prng
+def phase_serve_bf16_vs_plain():
+    """gemma3-4b at full width and 2 layers (one window-1024 layer, one
+    global)."""
     from repro_torch.configs import get_config
+
+    prefill_kernel_vs_plain(
+        "serve_bf16_vs_plain",
+        get_config(SERVE_ARCH).with_overrides(num_layers=2, global_every=2), 2)
+
+
+def phase_serve_moe_bf16_vs_plain():
+    """deepseek-moe-16b at full width and 2 layers (the dense one and one
+    MoE layer), against the plain attention in float32: its scores reach
+    the thousands (no QK-norm), where the bf16 plain attention's rounding
+    of them departs from the function the kernel and the TPU kernel
+    compute (PERF.md §6); that gap is recorded beside."""
+    from repro_torch.configs import get_config
+
+    release_memory()
+    prefill_kernel_vs_plain(
+        "serve_moe_bf16_vs_plain",
+        get_config(MOE_ARCH).with_overrides(num_layers=2), 4,
+        against="float32")
+
+
+def serve_card_vs_cpu(phase, cfg, seed, batch, prompt, new):
+    """``cfg`` (full width, 2 layers) in float32, ``batch`` rows of
+    ``prompt`` tokens, ``new`` new tokens, on the card and on the CPU from
+    the same weights: prefill and decode logits within rtol 1e-3, atol 5e-4
+    (cache against recompute's tolerance in tests/test_models_smoke.py),
+    greedy tokens equal. For a MoE model each layer's chosen experts are
+    compared too: a token whose experts differ must sit on a near-tie of its
+    router probabilities (`route_flips`), and the logits and tokens are
+    compared only over the batch rows whose routes agree in every call
+    (rows route apart: groups never span two). No row left to compare
+    fails the phase."""
+    from repro_torch import prng
     from repro_torch.models.factory import build_model
     from repro_torch.models.transformer import _layer_flags
     from repro_torch.sharding.rules import init_from_defs, tree_map
 
-    cfg = get_config(SERVE_ARCH).with_overrides(num_layers=2, global_every=2,
-                                                dtype="float32")
     on_card, on_cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
-    params = init_from_defs(torch.Generator(device="cuda").manual_seed(1),
+    params = init_from_defs(torch.Generator(device="cuda").manual_seed(seed),
                             on_card.param_defs)
-    batch = {"tokens": prng.randint(prng.PRNGKey(1), (1, SERVE_PROMPT), 0,
-                                    cfg.vocab_size)}
-    new, cache_len = 4, SERVE_PROMPT + 4
+    prompts = {"tokens": prng.randint(prng.PRNGKey(seed), (batch, prompt),
+                                      0, cfg.vocab_size)}
+    cache_len = prompt + new
     t0 = time.perf_counter()
-    card_logits, card_toks = greedy_steps(on_card, params, batch, cache_len, new)
-    card_logits = [x.cpu() for x in card_logits]
+    with recorded_routes() as card_routes:
+        card_logits, card_toks = greedy_steps(on_card, params, prompts,
+                                              cache_len, new)
+        card_logits = [x.cpu() for x in card_logits]
     card_s = time.perf_counter() - t0
+    params = tree_map(lambda t: t.cpu(), params)
     t0 = time.perf_counter()
-    cpu_logits, cpu_toks = greedy_steps(on_cpu, tree_map(lambda t: t.cpu(), params),
-                                        batch, cache_len, new)
+    with recorded_routes() as cpu_routes:
+        cpu_logits, cpu_toks = greedy_steps(on_cpu, params, prompts,
+                                            cache_len, new)
     cpu_s = time.perf_counter() - t0
-    gaps = [float((a - b).abs().max()) for a, b in zip(card_logits, cpu_logits)]
-    close = [bool(torch.allclose(a, b, rtol=1e-3, atol=5e-4))
+    flips = route_flips(card_routes, cpu_routes)
+    rows = [r for r in range(card_toks.shape[0])
+            if all(f["row"] != r for f in flips)]
+    gaps = [float((a[rows] - b[rows]).abs().max()) if rows else None
+            for a, b in zip(card_logits, cpu_logits)]
+    close = [bool(torch.allclose(a[rows], b[rows], rtol=1e-3, atol=5e-4))
              for a, b in zip(card_logits, cpu_logits)]
-    rec = dict(phase="serve_card_vs_cpu", arch=cfg.name, layers=cfg.num_layers,
-               windows=_layer_flags(cfg).tolist(), batch=1,
-               prompt=SERVE_PROMPT, new_tokens=new,
+    toks_equal = bool(torch.equal(card_toks.cpu()[rows], cpu_toks[rows]))
+    rec = dict(phase=phase, arch=cfg.name, layers=cfg.num_layers,
+               windows=_layer_flags(cfg).tolist(), batch=batch,
+               prompt=prompt, new_tokens=new,
                dtype=cfg.dtype, rtol=1e-3, atol=5e-4,
                max_abs_logit_gap=gaps, within_tol=close,
+               rows_compared=rows, moe_layer_calls=len(card_routes),
+               tokens_with_other_experts=len(flips),
+               near_tie=NEAR_TIE, route_flips=flips,
                tokens_card=card_toks.cpu().tolist(),
                tokens_cpu=cpu_toks.tolist(), card_s=card_s, cpu_s=cpu_s)
     emit(**rec)
-    if not all(close) or not torch.equal(card_toks.cpu(), cpu_toks):
-        raise AssertionError(f"serve on the card and the CPU disagree: {rec}")
+    if len(card_routes) != len(cpu_routes) or \
+            not all(f["near_tie"] for f in flips):
+        raise AssertionError(f"{phase}: experts differ off a near-tie: {rec}")
+    if not rows:
+        raise AssertionError(f"{phase}: every row's experts differ at a "
+                             f"near-tie, no logits left to compare: {rec}")
+    if not all(close) or not toks_equal:
+        raise AssertionError(f"{phase}: serve on the card and the CPU "
+                             f"disagree: {rec}")
+
+
+def phase_serve_card_vs_cpu():
+    """gemma3-4b at full width and 2 layers (one window-1024 layer, one
+    global), prompt 2048, 4 new tokens."""
+    from repro_torch.configs import get_config
+
+    serve_card_vs_cpu(
+        "serve_card_vs_cpu",
+        get_config(SERVE_ARCH).with_overrides(num_layers=2, global_every=2,
+                                              dtype="float32"),
+        1, 1, SERVE_PROMPT, 4)
+
+
+def phase_serve_moe_card_vs_cpu():
+    """deepseek-moe-16b at full width and 2 layers (the dense one and one
+    MoE layer), batch 2 (a flip at a near-tie drops one row from the
+    comparison, not all), prompt 512 (two routing groups of 256 a row), 4
+    new tokens."""
+    from repro_torch.configs import get_config
+
+    release_memory()
+    serve_card_vs_cpu(
+        "serve_moe_card_vs_cpu",
+        get_config(MOE_ARCH).with_overrides(num_layers=2, dtype="float32"),
+        5, 2, 512, 4)
 
 
 # the training phase's shape: gemma3-4b at full width, depth cut from 34 to
@@ -1062,31 +1378,21 @@ def phase_train():
     never. K1's time per fused step (CUDA events over `apply_tree` on the
     step's trees) beside its bound and the unfused step's torch ops for the
     same update."""
-    import gc
-
     from repro_torch.config import SVRGConfig, TrainConfig
     from repro_torch.configs import get_config
-    from repro_torch.core.distributed import svrg_direction
     from repro_torch.data.synthetic_lm import SyntheticLMDataset
-    from repro_torch.kernels.svrg_update.ops import apply_tree
     from repro_torch.models.factory import build_model
     from repro_torch.models.transformer import _layer_flags
-    from repro_torch.optim import make_optimizer
-    from repro_torch.train.loop import device_batch, train
-    from repro_torch.train.state import make_train_step
-    from repro_torch.utils.tree import (tree_bytes, tree_flatten_with_path,
-                                        tree_leaves, tree_map, tree_size)
+    from repro_torch.train.loop import train
+    from repro_torch.utils.tree import tree_leaves, tree_size
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
+    release_memory()
     cfg = get_config(TRAIN_ARCH).with_overrides(num_layers=TRAIN_LAYERS)
     bundle = build_model(cfg, "cuda")
     tok_embed = svrg_update_tok_embed(
         torch.Generator(device="cuda").manual_seed(3),
         bundle.param_defs["tok_embed"].shape)
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_memory()
     torch.cuda.reset_peak_memory_stats()
     tcfg = TrainConfig(steps=TRAIN_STEPS, optimizer="svrg",
                        learning_rate=TRAIN_LR, seed=0, log_every=1,
@@ -1119,51 +1425,13 @@ def phase_train():
         raise AssertionError(f"train (unfused) launch counts {counts}")
 
     # the fused SVRG step against the unfused one, each from the same state
-    fused = make_train_step(bundle, tcfg, use_fused_update=True)
-    unfused = make_train_step(bundle, tcfg)
     leaves = len(tree_leaves(state.params))
-    compare = []
-    fused_counts = dict.fromkeys(counts, 0)
-    for i in range(TRAIN_FUSED_STEPS):
-        batch = device_batch(ds.batch_at(TRAIN_STEPS + i), "cuda")
-        torch.cuda.synchronize()
-        reset_counts()
-        sf, mf = fused(state, batch)
-        torch.cuda.synchronize()
-        for key, n in read_counts().items():
-            fused_counts[key] += n
-        state, mu = unfused(state, batch)
-        gaps = {k: float((a - b).abs().max()) for (k, a), (_, b) in zip(
-            tree_flatten_with_path(sf.params),
-            tree_flatten_with_path(state.params))}
-        close = all(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6))
-                    for a, b in zip(tree_leaves(sf.params),
-                                    tree_leaves(state.params)))
-        compare.append(dict(
-            step=int(state.step) - 1, params_allclose=close,
-            max_abs_param_gap=max(gaps.values()),
-            metrics_fused={k: float(v) for k, v in mf.items()},
-            metrics_unfused={k: float(v) for k, v in mu.items()},
-            metrics_equal=all(bool(torch.equal(mf[k], mu[k])) for k in mu)))
-        del sf
+    state, compare, fused_counts = fused_vs_unfused(
+        bundle, tcfg, state,
+        [ds.batch_at(TRAIN_STEPS + i) for i in range(TRAIN_FUSED_STEPS)])
     fused_peak = torch.cuda.max_memory_allocated() / 1e9
-
-    # K1 over the whole tree, as the fused step launches it, against the
-    # unfused step's torch ops for the same update (v, then sgd's apply)
-    params, w_snap, g_snap = state.params, state.svrg.w_snap, state.svrg.g_snap
-    fourth = tree_map(torch.zeros_like, params)
-    lr = torch.tensor(TRAIN_LR, device="cuda")
-    opt = make_optimizer(tcfg)
-    k1_ms = median_ms(lambda: apply_tree(params, w_snap, g_snap, fourth, lr),
-                      reps=5, inner=1)
-    torch_ms = median_ms(lambda: opt.apply(
-        svrg_direction(w_snap, g_snap, fourth), {}, lr, params, state.step),
-        reps=5, inner=1)
-    n = tree_size(params)
-    k1_bound, k1_by = bound_ms(5 * tree_bytes(params) + 4 * sum(
-        x.numel() // x.shape[-1] if x.dim() else 1 for x in tree_leaves(params)),
-        4 * n)
-    del fourth
+    k1_ms, k1_bound, k1_by, torch_ms = k1_over_tree(tcfg, state)
+    n = tree_size(state.params)
     windows = _layer_flags(cfg).tolist()
     rec = dict(phase="train", arch=cfg.name, layers=cfg.num_layers,
                windows=windows, d_model=cfg.d_model, vocab=cfg.vocab_size,
@@ -1185,15 +1453,176 @@ def phase_train():
                k1_bound_by=k1_by, unfused_update_torch_ms=torch_ms,
                tok_embed=tok_embed)
     emit(**rec)
+    check_fused(compare, fused_counts, leaves, "train")
+    return rec
+
+
+def fused_vs_unfused(bundle, tcfg, state, batches):
+    """For each batch, the fused SVRG step (K1 per leaf) and the unfused
+    one from the same state; the unfused step carries the state on.
+    Returns (the last state, a comparison per step: params allclose at rtol
+    1e-5, atol 1e-6, the largest gap, both steps' metrics and whether they
+    are equal; the fused steps' launch counts, summed)."""
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.state import make_train_step
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_leaves
+
+    fused = make_train_step(bundle, tcfg, use_fused_update=True)
+    unfused = make_train_step(bundle, tcfg)
+    compare, fused_counts = [], None
+    for b in batches:
+        batch = device_batch(b, "cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sf, mf = fused(state, batch)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        counts = read_counts()
+        fused_counts = counts if fused_counts is None else {
+            k: fused_counts[k] + n for k, n in counts.items()}
+        t0 = time.perf_counter()
+        state, mu = unfused(state, batch)
+        torch.cuda.synchronize()
+        unfused_s = time.perf_counter() - t0
+        gaps = {k: float((a - b).abs().max()) for (k, a), (_, b) in zip(
+            tree_flatten_with_path(sf.params),
+            tree_flatten_with_path(state.params))}
+        close = all(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6))
+                    for a, b in zip(tree_leaves(sf.params),
+                                    tree_leaves(state.params)))
+        compare.append(dict(
+            step=int(state.step) - 1, params_allclose=close,
+            max_abs_param_gap=max(gaps.values()),
+            metrics_fused={k: float(v) for k, v in mf.items()},
+            metrics_unfused={k: float(v) for k, v in mu.items()},
+            metrics_equal=all(bool(torch.equal(mf[k], mu[k])) for k in mu),
+            fused_s=fused_s, unfused_s=unfused_s))
+        del sf
+    return state, compare, fused_counts
+
+
+def check_fused(compare, fused_counts, leaves, phase):
     if not all(c["params_allclose"] and c["metrics_equal"] for c in compare):
-        raise AssertionError(f"fused and unfused train steps disagree: "
-                             f"{compare}")
-    if fused_counts != {"svrg_update": leaves * TRAIN_FUSED_STEPS,
+        raise AssertionError(f"{phase}: fused and unfused train steps "
+                             f"disagree: {compare}")
+    if fused_counts != {"svrg_update": leaves * len(compare),
                         "logreg_grad": 0, "sweep_epoch": 0,
                         "flash_attention": 0}:
-        raise AssertionError(f"fused train steps' launch counts "
+        raise AssertionError(f"{phase}: fused train steps' launch counts "
                              f"{fused_counts}, want {leaves} svrg_update "
                              f"launches per step and nothing else")
+
+
+def k1_over_tree(tcfg, state):
+    """K1 over the whole param tree, as the fused step launches it (CUDA
+    events), against the unfused step's torch ops for the same update (v,
+    then SGD's apply): (K1 ms, its bound ms, what bounds it, torch ms)."""
+    from repro_torch.core.distributed import svrg_direction
+    from repro_torch.kernels.svrg_update.ops import apply_tree
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_bytes, tree_leaves, tree_map
+
+    params, w_snap, g_snap = state.params, state.svrg.w_snap, state.svrg.g_snap
+    fourth = tree_map(torch.zeros_like, params)
+    lr = torch.tensor(tcfg.learning_rate, device="cuda")
+    opt = make_optimizer(tcfg)
+    k1_ms = median_ms(lambda: apply_tree(params, w_snap, g_snap, fourth, lr),
+                      reps=5, inner=1)
+    torch_ms = median_ms(lambda: opt.apply(
+        svrg_direction(w_snap, g_snap, fourth), {}, lr, params, state.step),
+        reps=5, inner=1)
+    # five float32 trees through HBM (u, g, g0, gf read, u' written) and a
+    # step size per row; 4 flops an element
+    k1_bound, k1_by = bound_ms(5 * tree_bytes(params) + 4 * sum(
+        x.numel() // x.shape[-1] if x.dim() else 1 for x in tree_leaves(params)),
+        4 * sum(x.numel() for x in tree_leaves(params)))
+    return k1_ms, k1_bound, k1_by, torch_ms
+
+
+# the MoE training phase's shape: deepseek-moe-16b at full width, 2 layers
+# (the dense one and one MoE layer, 1.09 B params: SVRG's six float32 trees
+# take ~26 GB), batch 2, sequence 2048 (8 routing groups of 256 per row)
+TRAIN_MOE_LAYERS = 2
+TRAIN_MOE_SNAPSHOT_BATCHES = 1
+
+
+def phase_train_moe():
+    """The MoE training path at deepseek-moe-16b's full width, 2 layers,
+    float32 params, bf16 activations, ``remat="full"``, batch 2, sequence
+    2048 (random weights from seed 0, `SyntheticLMDataset` seed 0): a
+    snapshot over one batch and one unfused step (the warm-up's lr 0), then
+    2 fused SVRG steps against 2 unfused ones, each from the same state: params allclose (rtol 1e-5, atol 1e-6),
+    metrics equal (the loss holds the router aux), K1 launched once per
+    leaf per fused step (the expert leaves [1, 64, 2048, 1408] viewed
+    [numel/1408, 1408]), K4 never. K1's ms per fused step beside its
+    bound."""
+    from repro_torch.config import SVRGConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic_lm import SyntheticLMDataset
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.state import (init_train_state, make_snapshot_fns,
+                                         make_train_step)
+    from repro_torch.utils.tree import tree_leaves, tree_size
+
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE_ARCH).with_overrides(num_layers=TRAIN_MOE_LAYERS)
+    bundle = build_model(cfg, "cuda")
+    # warm-up of one step: step 0's lr is 0, so one unfused step comes
+    # before the compared ones
+    tcfg = TrainConfig(optimizer="svrg", learning_rate=TRAIN_LR, seed=0,
+                       warmup_steps=1,
+                       svrg=SVRGConfig(
+                           snapshot_batches=TRAIN_MOE_SNAPSHOT_BATCHES))
+    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             bundle, tcfg)
+    begin, accum, fin = make_snapshot_fns(bundle, tcfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = begin(state)
+    for j in range(TRAIN_MOE_SNAPSHOT_BATCHES):
+        state = accum(state, device_batch(ds.batch_at(j), "cuda"))
+    state = fin(state)
+    torch.cuda.synchronize()
+    snapshot_s = time.perf_counter() - t0
+    state, first = make_train_step(bundle, tcfg)(state, device_batch(
+        ds.batch_at(TRAIN_MOE_SNAPSHOT_BATCHES), "cuda"))
+    snapshot_counts = read_counts()
+    leaves = len(tree_leaves(state.params))
+    state, compare, fused_counts = fused_vs_unfused(
+        bundle, tcfg, state,
+        [ds.batch_at(TRAIN_MOE_SNAPSHOT_BATCHES + 1 + i)
+         for i in range(TRAIN_FUSED_STEPS)])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    k1_ms, k1_bound, k1_by, torch_ms = k1_over_tree(tcfg, state)
+    rec = dict(phase="train_moe", arch=cfg.name, layers=cfg.num_layers,
+               first_dense_layers=cfg.first_dense_layers,
+               experts=cfg.num_experts, top_k=cfg.experts_per_token,
+               d_model=cfg.d_model, vocab=cfg.vocab_size,
+               params=tree_size(state.params), leaves=leaves,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype=cfg.dtype,
+               param_dtype=cfg.param_dtype, remat=cfg.remat,
+               optimizer=tcfg.optimizer, lr=TRAIN_LR,
+               snapshot_batches=TRAIN_MOE_SNAPSHOT_BATCHES,
+               snapshot_s=snapshot_s, snapshot_launches=snapshot_counts,
+               first_step_loss=float(first["loss"]),
+               fused_vs_unfused=compare, fused_launches=fused_counts,
+               k1_launches_per_fused_step=fused_counts["svrg_update"]
+               / len(compare),
+               k1_ms_per_fused_step=k1_ms, k1_bound_ms_per_fused_step=k1_bound,
+               k1_bound_by=k1_by, unfused_update_torch_ms=torch_ms,
+               peak_memory_gb=peak)
+    emit(**rec)
+    if not all(np.isfinite(c["metrics_unfused"]["loss"]) for c in compare):
+        raise AssertionError(f"train_moe: losses {compare}")
+    if snapshot_counts != dict.fromkeys(snapshot_counts, 0):
+        raise AssertionError(f"train_moe snapshot launch counts "
+                             f"{snapshot_counts}")
+    check_fused(compare, fused_counts, leaves, "train_moe")
     return rec
 
 
@@ -1317,13 +1746,29 @@ def main() -> int:
     phase_train_card_vs_cpu()
     emit(phase="train_card_vs_cpu_done", seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
+    moe_counts = phase_serve_moe(report)
+    emit(phase="serve_moe_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_serve_moe_bf16_vs_plain()
+    emit(phase="serve_moe_bf16_vs_plain_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_serve_moe_card_vs_cpu()
+    emit(phase="serve_moe_card_vs_cpu_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    train_moe_rec = phase_train_moe()
+    emit(phase="train_moe_done", seconds=time.perf_counter() - t0)
+
     replaces = {"svrg_update": "src/repro/kernels/svrg_update/kernel.py:23",
                 "logreg_grad": "src/repro/kernels/logreg_grad/kernel.py:31",
                 "sweep_epoch": "src/repro/kernels/sweep_epoch/kernel.py:92",
                 "flash_attention": "src/repro/kernels/flash_attention/kernel.py:33"}
     # launches: each kernel's count in the run of its path — run_asysvrg for
     # svrg_update and logreg_grad, the fused run_sweep for sweep_epoch, the
-    # gemma3-4b serve run for flash_attention
+    # gemma3-4b serve run for flash_attention (deepseek-moe-16b's beside it)
     launches = {**counts, "sweep_epoch": fused_counts["sweep_epoch"],
                 "flash_attention": serve_counts["flash_attention"]}
     # flash_attention: the tensor-core kernel, the route of every launch on
@@ -1352,7 +1797,20 @@ def main() -> int:
         train_torch_ms_per_fused_step=train_rec["unfused_update_torch_ms"],
         tok_embed_ms=train_rec["tok_embed"]["ms"],
         tok_embed_plain_ms=train_rec["tok_embed"]["plain_ms"],
-        tok_embed_bound_ms=train_rec["tok_embed"]["bound_ms"])
+        tok_embed_bound_ms=train_rec["tok_embed"]["bound_ms"],
+        moe_train_launches_per_fused_step=train_moe_rec[
+            "k1_launches_per_fused_step"],
+        moe_train_ms_per_fused_step=train_moe_rec["k1_ms_per_fused_step"],
+        moe_train_bound_ms_per_fused_step=train_moe_rec[
+            "k1_bound_ms_per_fused_step"])
+    # K4 on the deepseek-moe-16b serve path too: launches per prefill, and
+    # its time at that shape beside SDPA and the bound
+    moe_k4 = report["flash_attention"]["moe"]
+    kernels[3].update(
+        moe_launches_per_prefill=moe_counts["flash_attention"],
+        moe_ms=moe_k4["ms"], moe_plain_ms=moe_k4["plain_ms"],
+        moe_library_ms=moe_k4["library_ms"], moe_bound_ms=moe_k4["bound_ms"],
+        moe_max_abs_err=moe_k4["max_abs_err"])
     emit(phase="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ class ModelConfig:
     - ``ssm``     attention-free Mamba1 selective-SSM stack
     - ``logreg``  the paper's own workload (L2-regularized logistic regression)
 
-    The port's model factory builds ``dense`` only so far.
+    The port's model factory builds ``dense``, ``moe`` and ``logreg`` so
+    far.
     """
 
     name: str

@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` resolution and reduced
 smoke configs, as in the JAX package's ``configs/registry.py``.
 
-The port registers the four dense architectures its model factory builds,
-each module a field-for-field copy of the JAX package's. ``reduced_config``
-shrinks one to a CPU-testable size of the same family without changing the
-code path exercised.
+The port registers the architectures its model factory builds (the four
+dense ones, the two mixture-of-experts ones, and the paper's logistic
+regression), each module a field-for-field copy of the JAX package's.
+``reduced_config`` shrinks one to a CPU-testable size of the same family
+without changing the code path exercised.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
-        chatglm3_6b, command_r_plus_104b, gemma3_4b, stablelm_12b,
+        chatglm3_6b, command_r_plus_104b, deepseek_moe_16b, gemma3_4b,
+        paper_logreg, qwen3_moe_235b, stablelm_12b,
     )
 
 
@@ -41,7 +43,7 @@ def list_configs() -> List[str]:
 
 def reduced_config(name: str) -> ModelConfig:
     """Same-family miniature for CPU tests (the JAX package's reduction for
-    the dense family)."""
+    the dense, moe and logreg families)."""
     cfg = get_config(name)
     kw = dict(
         num_layers=min(cfg.num_layers, 4),
@@ -55,6 +57,14 @@ def reduced_config(name: str) -> ModelConfig:
         param_dtype="float32",
         remat="none",
     )
+    if cfg.family == "moe":
+        kw.update(num_experts=8, experts_per_token=min(2, cfg.experts_per_token),
+                  moe_d_ff=64,
+                  num_shared_experts=cfg.num_shared_experts and 1,
+                  first_dense_layers=min(1, cfg.first_dense_layers),
+                  d_ff=0)
     if cfg.attn_pattern == "local_global":
         kw.update(local_window=8, global_every=min(3, cfg.global_every))
+    if cfg.family == "logreg":
+        kw = dict(num_features=64)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)

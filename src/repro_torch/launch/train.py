@@ -52,6 +52,11 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family == "logreg":
+        raise SystemExit(
+            f"{cfg.name} has no training path here: its loss reads X and y, "
+            "and this CLI feeds token batches; the paper's path trains it "
+            "(repro_torch.run_asysvrg, run_sweep)")
     bundle = build_model(cfg, args.device)
     tcfg = TrainConfig(
         steps=args.steps, optimizer=args.optimizer, learning_rate=args.lr,

@@ -1,1 +1,2 @@
-"""Dense decoder-only transformer of the port: layers, the model, its factory."""
+"""Models of the port: the dense decoder-only transformer, the
+mixture-of-experts family, their layers and their factory."""

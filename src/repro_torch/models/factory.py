@@ -1,30 +1,30 @@
 """Model factory: ``ModelConfig.family`` -> the family module, bundled as
 uniform (loss_fn, prefill, decode_step, param_defs, cache_defs, make_inputs)
 functions for the train loop and the serve loop; the port of the JAX
-package's ``models/factory.py`` for the dense family. ``input_specs`` (the
-dry-run's shape-only batch) waits for ``launch/dryrun``.
+package's ``models/factory.py`` for the dense and moe families and the
+paper's logistic regression (``logreg``: a loss and its inputs, no serve
+path). ``input_specs`` (the dry-run's shape-only batch) waits for
+``launch/dryrun``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.objective import default_device
+from repro_torch.sharding.rules import ParamDef
 from repro_torch.utils.tree import tree_map
 
 # families the JAX package builds that the port does not yet, with the
 # ROADMAP item that brings each
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 4 (models/moe.py)",
     "encdec": "ROADMAP Queue 1 item 4 (models/encdec.py)",
     "vlm": "ROADMAP Queue 1 item 4 (models/vlm.py)",
     "hybrid": "ROADMAP Queue 1 item 4 (models/rglru.py)",
     "ssm": "ROADMAP Queue 1 item 4 (models/mamba.py)",
-    "logreg": "ROADMAP Queue 1 item 4 (the factory's logreg bundle; the "
-              "paper's path is repro_torch.core)",
 }
 
 
@@ -35,10 +35,10 @@ class ModelBundle:
     param_defs: Any                      # ParamDef dict
     cast: Callable                       # master params -> activation-dtype copies
     loss_fn: Callable                    # (params, batch) -> scalar
-    prefill_fn: Callable                 # (params, batch, cache_len) -> (logits, cache)
-    decode_fn: Callable                  # (params, cache, tokens, pos) -> (logits, cache)
-    cache_defs: Callable                 # (batch, seq) -> ParamDef dict
-    make_inputs: Callable                # (batch, seq, gen) -> concrete token batch
+    prefill_fn: Optional[Callable]       # (params, batch, cache_len) -> (logits, cache)
+    decode_fn: Optional[Callable]        # (params, cache, tokens, pos) -> (logits, cache)
+    cache_defs: Optional[Callable]       # (batch, seq) -> ParamDef dict
+    make_inputs: Callable                # (batch, seq, gen) -> concrete batch
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
@@ -48,11 +48,15 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
     if fam in _NOT_PORTED:
         raise NotImplementedError(
             f"family {fam!r} is not ported yet: {_NOT_PORTED[fam]}")
-    if fam != "dense":
+    if fam not in ("dense", "moe", "logreg"):
         raise ValueError(f"unknown family {fam!r}")
-    from repro_torch.models import transformer as mod
-
     device = default_device(device)
+    if fam == "logreg":
+        return _build_logreg(cfg, device)
+    if fam == "moe":
+        from repro_torch.models import moe as mod
+    else:
+        from repro_torch.models import transformer as mod
     act_dtype = getattr(torch, cfg.dtype)
 
     def cast(params: Dict) -> Dict:
@@ -92,4 +96,37 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
     return ModelBundle(cfg=cfg, device=device, param_defs=mod.param_defs(cfg),
                        cast=cast, loss_fn=loss_fn, prefill_fn=prefill_fn,
                        decode_fn=decode_fn, cache_defs=cache_defs,
+                       make_inputs=make_inputs)
+
+
+# ---------------------------------------------------------------------------
+# The paper's own workload as a "model": logistic regression
+# ---------------------------------------------------------------------------
+
+def _build_logreg(cfg: ModelConfig, device: torch.device) -> ModelBundle:
+    """The JAX package's ``_build_logreg``: params ``{"w": zeros[F]}``, the
+    mean logistic loss over a batch ``{"X": [b, F], "y": [b] in ±1}`` plus
+    (λ/2)|w|², and concrete inputs. No serve path (``prefill_fn`` None) and
+    no cast (float32 throughout)."""
+    defs = {"w": ParamDef((cfg.num_features,), ("features",), "zeros")}
+
+    def loss_fn(params, batch):
+        w = params["w"]
+        margins = batch["y"] * batch["X"].matmul(w)
+        return (torch.logaddexp(torch.zeros_like(margins), -margins).mean()
+                + 0.5 * cfg.l2_reg * torch.dot(w, w))
+
+    def make_inputs(batch: int, seq: int, gen: torch.Generator):
+        """X standard normal [batch, F] and y = sign(normal + 0.1) [batch],
+        drawn in turn from ``gen`` on its device (``seq`` is unused, as in
+        the JAX package, whose X and y share one key)."""
+        X = torch.randn((batch, cfg.num_features), generator=gen,
+                        device=gen.device)
+        y = torch.sign(torch.randn((batch,), generator=gen, device=gen.device)
+                       + 0.1)
+        return {"X": X, "y": y}
+
+    return ModelBundle(cfg=cfg, device=device, param_defs=defs,
+                       cast=lambda params: params, loss_fn=loss_fn,
+                       prefill_fn=None, decode_fn=None, cache_defs=None,
                        make_inputs=make_inputs)

@@ -142,6 +142,20 @@ def plain_attend(q, k, v, pos, window: int):
                         chunk_q=2048)
 
 
+def attention_sublayer(cfg: ModelConfig, lp: Dict, h, pos, window: int,
+                       attend=flash_attend):
+    """A block's attention half: norm, q/k/v, RoPE, ``attend(q, k, v, pos,
+    window)``, the output projection and the residual. Returns (h_out,
+    (k, v)), the K/V for the cache. The MoE block shares it."""
+    x = nn.apply_norm(cfg, h, lp["attn_norm"])
+    q, k, v = nn.gqa_project(x, lp["attn"], cfg, cfg.use_qkv_bias)
+    q, k = _qk_normalize(cfg, lp["attn"], q, k)
+    q = nn.apply_rope(q, pos, cfg)
+    k = nn.apply_rope(k, pos, cfg)
+    out = attend(q, k, v, pos, window)
+    return h + nn.attn_output(out, lp["attn"], cfg.use_bias), (k, v)
+
+
 def block_apply(cfg: ModelConfig, lp: Dict, h, pos, window: int,
                 attend=flash_attend):
     """One transformer block; ``window`` 0 means global. ``attend(q, k, v,
@@ -151,16 +165,9 @@ def block_apply(cfg: ModelConfig, lp: Dict, h, pos, window: int,
     layer writes the new token's K/V into the cache before attending over
     it.)
     """
-    x = nn.apply_norm(cfg, h, lp["attn_norm"])
-    q, k, v = nn.gqa_project(x, lp["attn"], cfg, cfg.use_qkv_bias)
-    q, k = _qk_normalize(cfg, lp["attn"], q, k)
-    q = nn.apply_rope(q, pos, cfg)
-    k = nn.apply_rope(k, pos, cfg)
-    out = attend(q, k, v, pos, window)
-    h = h + nn.attn_output(out, lp["attn"], cfg.use_bias)
+    h, kv = attention_sublayer(cfg, lp, h, pos, window, attend)
     x = nn.apply_norm(cfg, h, lp["mlp_norm"])
-    h = h + nn.mlp(x, lp["mlp"], cfg)
-    return h, (k, v)
+    return h + nn.mlp(x, lp["mlp"], cfg), kv
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
@@ -258,6 +265,25 @@ def prefill(cfg: ModelConfig, params, tokens, cache_len: int):
     return logits.to(torch.float32), cache
 
 
+def decode_attention(cfg: ModelConfig, lp: Dict, h, cache: Dict, i: int,
+                     pos: int, pos_q, pos_k, window: int):
+    """Layer ``i``'s attention half at decode: the new token's K/V written
+    into ``cache`` in place at ``pos``, then attention over the cache in
+    plain torch. Returns h after the residual. The MoE decode shares it."""
+    x = nn.apply_norm(cfg, h, lp["attn_norm"])
+    q, k, v = nn.gqa_project(x, lp["attn"], cfg, cfg.use_qkv_bias)
+    q, k = _qk_normalize(cfg, lp["attn"], q, k)
+    q = nn.apply_rope(q, pos_q, cfg)
+    k = nn.apply_rope(k, pos_q, cfg)
+    ck, cv = cache["k"][i], cache["v"][i]               # [B,K,S,h] views
+    ck[:, :, pos] = k[:, 0].to(ck.dtype)
+    cv[:, :, pos] = v[:, 0].to(cv.dtype)
+    out = nn.attention(q, ck.transpose(1, 2), cv.transpose(1, 2), pos_q,
+                       pos_k, causal=True, window=window, chunk_q=2048,
+                       softcap=0.0)
+    return h + nn.attn_output(out, lp["attn"], cfg.use_bias)
+
+
 def decode_step(cfg: ModelConfig, params, cache: Dict, tokens, pos: int):
     """One decode step. tokens [B] int; ``pos`` the shared position of the
     new token. Returns (logits [B,V] float32, cache).
@@ -275,18 +301,7 @@ def decode_step(cfg: ModelConfig, params, cache: Dict, tokens, pos: int):
     h = embed_tokens(cfg, params, tokens[:, None])
     for i, window in enumerate(_layer_flags(cfg).tolist()):
         lp = _layer(params["blocks"], i)
-        x = nn.apply_norm(cfg, h, lp["attn_norm"])
-        q, k, v = nn.gqa_project(x, lp["attn"], cfg, cfg.use_qkv_bias)
-        q, k = _qk_normalize(cfg, lp["attn"], q, k)
-        q = nn.apply_rope(q, pos_q, cfg)
-        k = nn.apply_rope(k, pos_q, cfg)
-        ck, cv = cache["k"][i], cache["v"][i]               # [B,K,S,h] views
-        ck[:, :, pos] = k[:, 0].to(ck.dtype)
-        cv[:, :, pos] = v[:, 0].to(cv.dtype)
-        out = nn.attention(q, ck.transpose(1, 2), cv.transpose(1, 2), pos_q,
-                           pos_k, causal=True, window=window, chunk_q=2048,
-                           softcap=0.0)
-        h = h + nn.attn_output(out, lp["attn"], cfg.use_bias)
+        h = decode_attention(cfg, lp, h, cache, i, pos, pos_q, pos_k, window)
         x = nn.apply_norm(cfg, h, lp["mlp_norm"])
         h = h + nn.mlp(x, lp["mlp"], cfg)
     h = nn.apply_norm(cfg, h, params["final_norm"])

@@ -650,3 +650,52 @@ def test_two_layer_fused_step_equals_unfused(gen):
             torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6,
                                        msg=f"{k} step {i}")
     assert gqa_flash.launches == flash
+
+
+def _moe_steps(bundle, params, toks, monkeypatch):
+    """Prefill of 32 tokens and 2 decode steps: (logits on the CPU, each MoE
+    routing, flash_attention launches)."""
+    from repro_torch.models import moe
+
+    seen, real = [], moe.route
+
+    def spy(*args, **kw):
+        seen.append(real(*args, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(moe, "route", spy)
+    before = gqa_flash.launches
+    toks = toks.to(bundle.device)
+    logits, cache = bundle.prefill_fn(params, {"tokens": toks[:, :32]}, 40)
+    out = [logits]
+    for step in range(2):
+        logits, cache = bundle.decode_fn(params, cache, toks[:, 32 + step],
+                                         32 + step)
+        out.append(logits)
+    monkeypatch.setattr(moe, "route", real)
+    return [x.cpu() for x in out], seen, gqa_flash.launches - before
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b"])
+def test_moe_serve_on_the_card_matches_cpu(gen, arch, monkeypatch):
+    """The reduced MoE models in float32 (the CUDA-core attention route):
+    one `flash_attention` launch per layer at prefill, none in decode, and
+    prefill and 2 decode steps on the card against the CPU from the same
+    weights: logits rtol 1e-3, atol 5e-4, the chosen experts equal."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.factory import build_model
+    from repro_torch.sharding.rules import init_from_defs, tree_map
+
+    cfg = reduced_config(arch)
+    card, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    params = init_from_defs(gen, card.param_defs)
+    toks = prng.randint(prng.PRNGKey(3), (2, 40), 0, cfg.vocab_size)
+    got, got_routes, launches = _moe_steps(card, params, toks, monkeypatch)
+    want, want_routes, _ = _moe_steps(
+        cpu, tree_map(lambda t: t.cpu(), params), toks, monkeypatch)
+    assert launches == cfg.num_layers
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=5e-4)
+    assert len(got_routes) == len(want_routes) > 0
+    for a, b in zip(got_routes, want_routes):
+        assert torch.equal(a.topi.cpu(), b.topi)

@@ -63,14 +63,28 @@ print(" ".join(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 """
 
 
-def test_checks_cover_the_training_modules():
+# the modules of the mixture-of-experts slice
+MOE_MODULES = (
+    "repro_torch.models.moe", "repro_torch.configs.deepseek_moe_16b",
+    "repro_torch.configs.qwen3_moe_235b", "repro_torch.configs.paper_logreg")
+
+
+def _assert_checked(modules):
     proc = _run([sys.executable, "-c", _LIST_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
     scanned = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
                for p in PORT.rglob("*.py")}
-    for name in TRAINING_MODULES:
+    for name in modules:
         assert name in walked and name in scanned, name
+
+
+def test_checks_cover_the_training_modules():
+    _assert_checked(TRAINING_MODULES)
+
+
+def test_checks_cover_the_moe_modules():
+    _assert_checked(MOE_MODULES)
 
 
 def test_source_never_names_jax_or_repro():

@@ -35,6 +35,10 @@ from repro_torch.models.factory import build_model
 from repro_torch.sharding.rules import ParamDef, init_from_defs
 
 DENSE = ["chatglm3-6b", "command-r-plus-104b", "gemma3-4b", "stablelm-12b"]
+# every arch the port registers: the dense ones, the mixture-of-experts
+# ones and the paper's logistic regression
+PORTED = sorted(DENSE + ["deepseek-moe-16b", "qwen3-moe-235b-a22b",
+                         "paper-logreg"])
 
 
 def _normal(shape, seed, scale=1.0):
@@ -52,7 +56,9 @@ def _close(got, want, tol=1e-5):
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_the_dense_configs():
-    assert list_configs() == DENSE
+    """The dense configs, and beside them the other ported families'."""
+    assert list_configs() == PORTED
+    assert set(DENSE) < set(list_configs())
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -107,8 +113,27 @@ def test_init_from_defs_follows_the_jax_rules():
     assert all(torch.equal(p[k], again[k]) for k in defs)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_from_defs_scales_in_place_with_the_old_bits(dtype):
+    """Scaling the float32 draw in place before the cast gives the bits of
+    the out-of-place ``(normal * scale).to(dtype)`` from the same
+    generator, for each drawn init."""
+    defs = {"a_normal": ParamDef((3, 40, 24), (None,) * 3, dtype=dtype),
+            "b_embed": ParamDef((64, 24), (None, None), "embed", scale=0.02,
+                                dtype=dtype),
+            "c_scaled": ParamDef((24,), (None,), "scaled", scale=0.5,
+                                 dtype=dtype)}
+    got = init_from_defs(torch.Generator().manual_seed(5), defs)
+    gen = torch.Generator().manual_seed(5)
+    dt = getattr(torch, dtype)
+    for name, scale in (("a_normal", 1.0 / 3 ** 0.5), ("b_embed", 0.02),
+                        ("c_scaled", 0.5)):
+        normal = torch.randn(defs[name].shape, generator=gen)
+        assert torch.equal(got[name], (normal * scale).to(dt)), name
+
+
 def test_factory_raises_for_families_not_ported():
-    cfg = dataclasses.replace(get_config("gemma3-4b"), family="moe")
+    cfg = dataclasses.replace(get_config("gemma3-4b"), family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
 

@@ -5,6 +5,7 @@ on the card.
     python3 tools/profile_port.py              # everything below
     python3 tools/profile_port.py batched      # the batched engine and K1's host path
     python3 tools/profile_port.py serve        # the serve path only
+    python3 tools/profile_port.py serve_moe    # the deepseek-moe-16b serve path
     python3 tools/profile_port.py sweep_epoch  # the fused engine and K3 only
     python3 tools/profile_port.py train        # one SVRG train step only
 
@@ -50,7 +51,11 @@ At the rcv1 width (n = 20242, p = 2048; data from
     one prefill and 4 decode steps, each without and under the profiler;
     then 5 prefills in a row on a fresh session, each timed by the host
     clock around a synchronised call and by CUDA events, with the device
-    allocations (`cudaMalloc`s of PyTorch's caching allocator) it made.
+    allocations (`cudaMalloc`s of PyTorch's caching allocator) it made; the
+    device kernels are also summed by kind (as in the `train` mode). The
+    `serve_moe` mode does the same at deepseek-moe-16b's full width and
+    depth (28 layers, 64 experts; not part of the default run). The weights
+    are drawn in bf16, as `launch.serve.run` draws them.
 
 The `train` mode (not part of the default run): gemma3-4b at full width
 and 12 layers, batch 2, sequence 2048 (chip_smoke.py's training phase), one
@@ -396,17 +401,17 @@ def _summary(events, wall: float, steps: int) -> dict:
     }
 
 
-def profile_serve(decode_steps: int = 4) -> None:
-    """gemma3-4b at full width (chip_smoke.py's serve phase: batch 4, prompt
+def profile_serve(arch: str = "gemma3-4b", decode_steps: int = 4) -> None:
+    """``arch`` at full width (chip_smoke.py's serve phases: batch 4, prompt
     2048, bf16): one prefill, then ``decode_steps`` decode steps, each
     window timed without and under the profiler."""
     from repro_torch import prng
-    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_config
     from repro_torch.models.factory import build_model
     from repro_torch.serve.loop import ServeSession
     from repro_torch.sharding.rules import init_from_defs
 
-    cfg = get_config("gemma3-4b")
+    cfg = serve_config(arch)
     bundle = build_model(cfg, "cuda")
     params = init_from_defs(torch.Generator(device="cuda").manual_seed(0),
                             bundle.param_defs)
@@ -417,6 +422,7 @@ def profile_serve(decode_steps: int = 4) -> None:
     print(json.dumps({"serve": "prefill", "arch": cfg.name, "batch": 4,
                       "prompt": 2048, "wall_s": wall,
                       "profiled_wall_s": prof_wall,
+                      "device_ms_by_kind": _kinds(events, 1),
                       **_summary(events, prof_wall, 1)}), flush=True)
     tok = torch.zeros(4, dtype=torch.int64, device="cuda")
 
@@ -429,6 +435,7 @@ def profile_serve(decode_steps: int = 4) -> None:
                       "cache_len": sess.cache_len, "steps": decode_steps,
                       "wall_ms_per_step": 1e3 * wall / decode_steps,
                       "profiled_wall_ms_per_step": 1e3 * prof_wall / decode_steps,
+                      "device_ms_by_kind": _kinds(events, decode_steps),
                       **_summary(events, prof_wall, decode_steps)}), flush=True)
 
     sess = ServeSession(bundle, params, 2048)
@@ -456,6 +463,8 @@ def _kinds(events, steps: int) -> dict:
 
     kinds = {"matmul": ("gemm", "xmma", "cutlass", "cublas", "nvjet"),
              "svrg_update": ("svrg_update",),
+             "flash_attention": ("flash",),
+             "sort_scan": ("sort", "scan"),
              "softmax_reduce": ("softmax", "reduce", "logsumexp", "norm"),
              "copy_fill": ("copy", "fill", "cat", "index", "gather",
                            "scatter", "stack"),
@@ -520,6 +529,9 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     if argv == ["serve"]:
         profile_serve()
+        return 0
+    if argv == ["serve_moe"]:
+        profile_serve("deepseek-moe-16b")
         return 0
     if argv == ["train"]:
         profile_train()
