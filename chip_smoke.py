@@ -85,7 +85,34 @@ released first):
     then compared over the rows whose routes agree, at least one);
   * 2 layers, float32 params, bf16 activations, rematerialised, batch 2,
     sequence 2048: 2 fused SVRG steps against 2 unfused ones from the same
-    state, one K1 launch per leaf (the expert leaves included), no K4.
+    state, one K1 launch per leaf (the expert leaves included), no K4;
+
+and the recurrent families at full width (random weights, bf16
+activations; K4's case at recurrentgemma-2b's prefill shape, B 4, S 4096,
+MQA N 10 over K 1, h 256, window 2048, among the kernel checks above):
+
+  * `launch.serve.run` for recurrentgemma-2b (26 layers: 8 groups of two
+    RG-LRU layers and one local-attention layer, 2 trailing RG-LRU
+    layers) at batch 4, prompt 4096 (twice the window: the ring cache
+    wraps), 16 new tokens: 8 `flash_attention` launches per prefill, all
+    on the tensor-core route, none in decode; and for falcon-mamba-7b (64
+    layers, d_inner 8192, N 16) at batch 4, prompt 2048: no launch of any
+    kernel of the repo (the selective scan runs in torch ops); prefill
+    seconds, decode ms per token, tokens/s, peak memory;
+  * recurrentgemma-2b at 3 layers (one group) in bf16, batch 1, prompt
+    4096: the prefill through the tensor-core kernel against the plain
+    attention in float32, in the logits and in the attention layer's
+    output (the bf16 plain attention's gaps beside);
+  * recurrentgemma-2b at 3 layers and falcon-mamba-7b at 2 in float32,
+    batch 2, prompt 640 (5 chunks in every scan), 4 new tokens, on the
+    card and on the CPU from the same weights: logits, greedy tokens and
+    every cache leaf (atol 5e-3, rtol 1e-3: their float32 is itself
+    ~1e-3 from the function at full width), each device's distance to a
+    float64 run recorded beside;
+  * recurrentgemma-2b at 5 layers and falcon-mamba-7b at 2, float32
+    params, bf16 activations, rematerialised, batch 2, sequence 2048: 2
+    fused SVRG steps against 2 unfused ones, one K1 launch per leaf, no
+    K4.
 
 `sweep_epoch` is held against its plain version at the main path's shape
 (the 4-row rcv1 group, 40480 inner updates); its other cases (Hogwild!,
@@ -487,6 +514,11 @@ LAYER_MIX = {1024: 29, 0: 5}
 # layers (N = K = 16, h = 128), the tensor-core kernel's h = 128 instance
 MOE_ARCH, MOE_LAYERS = "deepseek-moe-16b", 28
 MOE_K4_CASE = "moe_global_bf16"
+# recurrentgemma-2b's prefill at batch 4 and a prompt of twice its window:
+# 8 local-attention layers, MQA (N 10 over K 1, h = 256), window 2048
+HYBRID_ARCH, HYBRID_PROMPT, HYBRID_ATTN_LAYERS = "recurrentgemma-2b", 4096, 8
+HYBRID_K4_CASE = "hybrid_mqa_window_bf16"
+SSM_ARCH = "falcon-mamba-7b"
 
 
 def attention_pairs(S: int, window: int) -> int:
@@ -556,13 +588,15 @@ def flash_attention_vs_plain(gen):
     planted faults of `planted_faults` must fail them) and float32 on the
     CUDA-core route (F32_TOL), a ragged S = 2000, GQA 16:1 at h = 128, and
     deepseek-moe-16b's prefill shape (B 4, S 2048, N = K = 16, h 128,
-    global; bf16). The bf16 main
-    cases and deepseek's are timed beside the plain version, the CUDA-core
-    kernel on the same bf16 inputs (the kernel before the tensor-core one)
-    and `scaled_dot_product_attention` (the yardstick; the port never calls
-    it). Returns the kernel's record, per launch averaged over one gemma3-4b
-    prefill's 34 layers, with deepseek's case under ``moe`` (28 launches a
-    prefill)."""
+    global; bf16) and recurrentgemma-2b's (B 4, S 4096, MQA N 10 over K 1,
+    h 256, window 2048; bf16). The bf16 main
+    cases, deepseek's and recurrentgemma's are timed beside the plain
+    version, the CUDA-core kernel on the same bf16 inputs (the kernel
+    before the tensor-core one) and `scaled_dot_product_attention` (the
+    yardstick, with the band as a mask for a window; the port never calls
+    it). Returns the kernel's record, per launch averaged over one
+    gemma3-4b prefill's 34 layers, with deepseek's case under ``moe`` (28
+    launches a prefill) and recurrentgemma's under ``hybrid`` (8)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel
@@ -584,7 +618,8 @@ def flash_attention_vs_plain(gen):
              ("ragged_S2000_window_bf16", 4, 2000, 8, 4, 256, 1024, bf16,
               False),
              ("gqa_16to1_h128_bf16", 4, 2048, 16, 1, 128, 0, bf16, False),
-             (MOE_K4_CASE, 4, 2048, 16, 16, 128, 0, bf16, True)]
+             (MOE_K4_CASE, 4, 2048, 16, 16, 128, 0, bf16, True),
+             (HYBRID_K4_CASE, 4, HYBRID_PROMPT, 10, 1, 256, 2048, bf16, True)]
     timed = {}
     for name, B, S, N, K, h, window, dtype, time_it in cases:
         q = torch.randn((B, S, N, h), generator=gen, device="cuda").to(dtype)
@@ -677,6 +712,7 @@ def flash_attention_vs_plain(gen):
             raise AssertionError(f"flash_attention's bf16 limit lets a planted "
                                  f"fault pass: {rec}")
     moe_rec = timed.pop(MOE_K4_CASE)
+    hybrid_rec = timed.pop(HYBRID_K4_CASE)
     by_window = {t["window"]: t for t in timed.values()}
     layers = sum(LAYER_MIX.values())
     mix = {key: sum(n * by_window[w][key] for w, n in LAYER_MIX.items())
@@ -700,6 +736,14 @@ def flash_attention_vs_plain(gen):
         layers=MOE_LAYERS, per_prefill_ms=moe_rec["ms"] * MOE_LAYERS,
         per_prefill_library_ms=moe_rec["library_ms"] * MOE_LAYERS,
         per_prefill_bound_ms=moe_rec["bound_ms"] * MOE_LAYERS)
+    rec["hybrid"] = {key: hybrid_rec[key] for key in (
+        "ms", "plain_ms", "simt_ms", "library_ms", "bound_ms", "bound_by",
+        "max_abs_err", "share_of_bound", "ms_over_library_ms")}
+    rec["hybrid"].update(
+        layers=HYBRID_ATTN_LAYERS,
+        per_prefill_ms=hybrid_rec["ms"] * HYBRID_ATTN_LAYERS,
+        per_prefill_library_ms=hybrid_rec["library_ms"] * HYBRID_ATTN_LAYERS,
+        per_prefill_bound_ms=hybrid_rec["bound_ms"] * HYBRID_ATTN_LAYERS)
     emit(phase="kernels_vs_plain", **rec)
     return rec
 
@@ -906,7 +950,8 @@ def phase_sweep_fused(obj, batched, batched_s_per_epoch):
 
 def greedy_steps(bundle, params, batch, cache_len: int, new_tokens: int):
     """The serve session stepped by hand, greedy: (prefill logits, each
-    decode's logits, the tokens [B, new_tokens]), nothing synchronised."""
+    decode's logits, the tokens [B, new_tokens], the final cache), nothing
+    synchronised."""
     from repro_torch.serve.loop import ServeSession
 
     sess = ServeSession(bundle, params, cache_len)
@@ -915,17 +960,31 @@ def greedy_steps(bundle, params, batch, cache_len: int, new_tokens: int):
     for _ in range(new_tokens - 1):
         logits.append(sess.decode(toks[-1]))
         toks.append(torch.argmax(logits[-1], dim=-1).to(torch.int32))
-    return logits, torch.stack(toks, dim=1)
+    return logits, torch.stack(toks, dim=1), sess.cache
 
 
-def drive_serve(phase, arch, k4_ms_per_prefill):
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` that attend: one flash_attention launch each
+    per prefill."""
+    from repro_torch.models import rglru
+
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return rglru._pattern(cfg)[0]
+    return cfg.num_layers
+
+
+def drive_serve(phase, arch, k4_ms_per_prefill, prompt=SERVE_PROMPT):
     """The serve path at full width through `launch.serve.run` (the CLI's
     function: build_model, init_from_defs, prompts from prng.randint,
-    generate), batch 4, prompt 2048, 16 new tokens: one flash_attention
-    launch per prefill layer, each on the tensor-core route, none in decode,
-    no other kernel. Then the same session stepped by hand, synchronised
-    after the prefill and after the decodes, for the split of the time, and
-    three warm prefills. Returns (config, launch counts of `generate`)."""
+    generate), batch 4, ``prompt`` tokens, 16 new tokens: one
+    flash_attention launch per attention layer at prefill
+    (`attention_layers`; none for an SSM), each on the tensor-core route,
+    none in decode, no other kernel. Then the same session stepped by
+    hand, synchronised after the prefill and after the decodes, for the
+    split of the time, and three warm prefills. Returns (config, launch
+    counts of `generate`)."""
     from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.launch.serve import run
     from repro_torch.serve.loop import ServeSession
@@ -934,19 +993,20 @@ def drive_serve(phase, arch, k4_ms_per_prefill):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    res = run(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+    res = run(arch, batch=SERVE_BATCH, prompt_len=prompt,
               new_tokens=SERVE_NEW, device="cuda")
     counts = read_counts()
     routes = dict(gqa_flash.launches_by_route)
     cfg, bundle, params = res["cfg"], res["bundle"], res["params"]
+    n_attn = attention_layers(cfg)
     want = {"svrg_update": 0, "logreg_grad": 0, "sweep_epoch": 0,
-            "flash_attention": cfg.num_layers}
+            "flash_attention": n_attn}
     if counts != want:
         raise AssertionError(f"{phase} launch counts {counts} != {want}")
-    if routes != {"wgmma": cfg.num_layers, "simt": 0}:
+    if routes != {"wgmma": n_attn, "simt": 0}:
         raise AssertionError(f"{phase} flash_attention routes {routes}")
 
-    cache_len = SERVE_PROMPT + SERVE_NEW
+    cache_len = prompt + SERVE_NEW
     batch = {"tokens": res["prompts"]}
     sess = ServeSession(bundle, params, cache_len)
     torch.cuda.synchronize()
@@ -983,8 +1043,9 @@ def drive_serve(phase, arch, k4_ms_per_prefill):
         repeats.append((time.perf_counter() - t0,
                         start.elapsed_time(stop) / 1e3))
     rec = dict(phase=phase, arch=cfg.name, layers=cfg.num_layers,
+               attention_layers=n_attn,
                d_model=cfg.d_model, vocab=cfg.vocab_size, batch=SERVE_BATCH,
-               prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, cache_len=cache_len,
+               prompt=prompt, new_tokens=SERVE_NEW, cache_len=cache_len,
                dtype=cfg.dtype, param_dtype=cfg.param_dtype,
                params=sum(x.numel() for x in tree_leaves(params)),
                launches=counts, flash_routes=routes,
@@ -1010,7 +1071,7 @@ def drive_serve(phase, arch, k4_ms_per_prefill):
     if not rec["logits_finite"]:
         raise AssertionError(f"{phase}: non-finite logits")
     if (rec["flash_launches_prefill"], rec["flash_launches_decode"]) != \
-            (cfg.num_layers, 0) or prefill_routes != routes:
+            (n_attn, 0) or prefill_routes != routes:
         raise AssertionError(f"{phase}: flash launches {after_prefill} after "
                              f"prefill, {after_decode} after decode")
     if tuple(res["tokens"].shape) != (SERVE_BATCH, SERVE_NEW) \
@@ -1059,6 +1120,32 @@ def phase_serve_moe(report):
     return counts
 
 
+def phase_serve_hybrid(report):
+    """recurrentgemma-2b at full width and depth (26 layers: 8 groups of
+    two RG-LRU layers and one local-attention layer, 2 trailing RG-LRU
+    layers), prompt 4096, twice the window: K4 masks the window at
+    prefill, and the ring cache wraps in prefill and in decode."""
+    release_memory()
+    cfg, counts = drive_serve(
+        "serve_hybrid", HYBRID_ARCH,
+        report["flash_attention"]["hybrid"]["per_prefill_ms"],
+        prompt=HYBRID_PROMPT)
+    if (cfg.num_layers, attention_layers(cfg)) != (26, HYBRID_ATTN_LAYERS):
+        raise AssertionError(f"serve_hybrid: {cfg.num_layers} layers")
+    return counts
+
+
+def phase_serve_ssm():
+    """falcon-mamba-7b at full width and depth (64 layers, d_inner 8192,
+    N 16), prompt 2048. The path has no TPU kernel and launches none of
+    the repo's: the selective scan runs in torch ops."""
+    release_memory()
+    cfg, counts = drive_serve("serve_ssm", SSM_ARCH, 0.0)
+    if cfg.num_layers != 64:
+        raise AssertionError(f"serve_ssm: {cfg.num_layers} layers")
+    return counts
+
+
 @contextmanager
 def recorded_routes():
     """Every MoE routing (`models.moe.route`) made inside the block, copied
@@ -1103,17 +1190,21 @@ def route_flips(got, want):
     return flips
 
 
-def prefill_kernel_vs_plain(phase, cfg, seed, against="plain"):
-    """``cfg`` (full width, 2 layers) in bf16, batch 1, prompt 2048: the
-    prefill logits with attention through the tensor-core kernel against
-    the same prefill, same weights, with the plain attention on the card:
+def prefill_kernel_vs_plain(phase, cfg, seed, against="plain",
+                            prompt=SERVE_PROMPT):
+    """``cfg`` (full width, 2 or 3 layers) in bf16, batch 1, ``prompt``
+    tokens: the prefill logits with attention through the tensor-core
+    kernel against the same prefill, same weights, with the plain
+    attention on the card:
     ``against="plain"``, `ref.attention_ref` on the bf16 q, k, v (the JAX
     package's oracle, which rounds the scores to bf16); ``"float32"``, the
     same plain attention on q, k, v cast to float32, output rounded to bf16
     (the function of the TPU kernel, which computes the scores and the
     softmax in float32). Limit: the relative gap ||a - b|| / ||b|| <= 2e-2;
     against float32 the kernel must also be nearer to it than the bf16
-    plain attention is. All three prefills run, and every gap is recorded.
+    plain attention is, and so must the first attention layer's output
+    (within 2e-2 of the float32 attention's; all three prefills give it
+    the same inputs). All three prefills run, and every gap is recorded.
 
     Where the scores stay small (gemma3-4b: QK-norm) the kernel and the
     bf16 plain attention differ by bf16 roundings (max |dO| ~ 1.6e-2 at
@@ -1153,10 +1244,18 @@ def prefill_kernel_vs_plain(phase, cfg, seed, against="plain"):
         return plain_gqa(q.float(), k.float(), v.float(), causal=causal,
                          window=window).to(q.dtype)
 
-    def prefill_with(attention):
-        transformer.gqa_flash = attention  # this one prefill only
+    def prefill_with(name, attention):
+        """The prefill's logits with ``attention`` in every attention
+        layer; the first layer's output (the same inputs in every
+        prefill) kept as ``first_out[name]``."""
+        def attend(q, k, v, **kw):
+            out = attention(q, k, v, **kw)
+            first_out.setdefault(name, out.float())
+            return out
+
+        transformer.gqa_flash = attend  # this one prefill only
         try:
-            return ServeSession(bundle, params, SERVE_PROMPT).prefill(
+            return ServeSession(bundle, params, prompt).prefill(
                 batch).float()
         finally:
             transformer.gqa_flash = gqa_flash
@@ -1167,28 +1266,33 @@ def prefill_kernel_vs_plain(phase, cfg, seed, against="plain"):
     bundle = build_model(cfg, "cuda")
     params = init_from_defs(torch.Generator(device="cuda").manual_seed(seed),
                             bundle.param_defs)
-    batch = {"tokens": prng.randint(prng.PRNGKey(seed), (1, SERVE_PROMPT), 0,
+    batch = {"tokens": prng.randint(prng.PRNGKey(seed), (1, prompt), 0,
                                     cfg.vocab_size)}
+    first_out = {}
     before = dict(gqa_flash.launches_by_route)
     with recorded_routes() as kern_routes:
-        kern = ServeSession(bundle, params, SERVE_PROMPT).prefill(batch).float()
+        kern = prefill_with("kernel", gqa_flash)
     torch.cuda.synchronize()
     routes = {r: n - before[r] for r, n in gqa_flash.launches_by_route.items()}
     with recorded_routes() as plain_routes:
-        plain = prefill_with(plain_gqa)
+        plain = prefill_with("plain", plain_gqa)
     max_abs_score = []
     with recorded_routes() as f32_routes:
-        f32 = prefill_with(f32_gqa)
+        f32 = prefill_with("float32", f32_gqa)
     torch.cuda.synchronize()
     ref = {"plain": plain, "float32": f32}[against]
     rel = rel_gap(kern, ref)
     rec = dict(phase=phase, arch=cfg.name,
                layers=cfg.num_layers, windows=_layer_flags(cfg).tolist(),
-               batch=1, prompt=SERVE_PROMPT, dtype=cfg.dtype, routes=routes,
+               batch=1, prompt=prompt, dtype=cfg.dtype, routes=routes,
                against=against, rel_tol=2e-2, rel_logit_gap=rel,
                rel_gap_kernel_vs_plain=rel_gap(kern, plain),
                rel_gap_kernel_vs_f32_attention=rel_gap(kern, f32),
                rel_gap_plain_vs_f32_attention=rel_gap(plain, f32),
+               first_attention_rel_gap_kernel_vs_f32=rel_gap(
+                   first_out["kernel"], first_out["float32"]),
+               first_attention_rel_gap_plain_vs_f32=rel_gap(
+                   first_out["plain"], first_out["float32"]),
                max_abs_score=max_abs_score,
                max_abs_logit_gap=float((kern - ref).abs().max()),
                max_abs_logit=float(ref.abs().max()),
@@ -1199,13 +1303,20 @@ def prefill_kernel_vs_plain(phase, cfg, seed, against="plain"):
                    route_flips(kern_routes, plain_routes)),
                tokens_with_other_experts_vs_f32=len(
                    route_flips(kern_routes, f32_routes)),
-               of_tokens=SERVE_PROMPT * len(kern_routes))
+               of_tokens=prompt * len(kern_routes))
     emit(**rec)
-    nearer = against == "plain" or \
-        rec["rel_gap_kernel_vs_f32_attention"] <= \
-        rec["rel_gap_plain_vs_f32_attention"]
+    # against float32 the kernel is also the nearer one, in the logits and
+    # in the first attention layer's output: where the residual stream
+    # swamps the attention's share in bf16 (recurrentgemma-2b's RG-LRU
+    # layers before it) the logits alone cannot tell the attentions apart
+    nearer = against == "plain" or (
+        rec["rel_gap_kernel_vs_f32_attention"]
+        <= rec["rel_gap_plain_vs_f32_attention"]
+        and rec["first_attention_rel_gap_kernel_vs_f32"] <= 2e-2
+        and rec["first_attention_rel_gap_kernel_vs_f32"]
+        <= rec["first_attention_rel_gap_plain_vs_f32"])
     if not (rel <= 2e-2 and nearer and rec["finite"]
-            and routes == {"wgmma": cfg.num_layers, "simt": 0}):
+            and routes == {"wgmma": attention_layers(cfg), "simt": 0}):
         raise AssertionError(f"bf16 prefill, kernel against {against}: "
                              f"{rec}")
 
@@ -1235,17 +1346,62 @@ def phase_serve_moe_bf16_vs_plain():
         against="float32")
 
 
-def serve_card_vs_cpu(phase, cfg, seed, batch, prompt, new):
-    """``cfg`` (full width, 2 layers) in float32, ``batch`` rows of
+def phase_serve_hybrid_bf16_vs_plain():
+    """recurrentgemma-2b at full width and 3 layers (one group: two RG-LRU
+    layers and one local-attention layer), prompt 4096, against the plain
+    attention in float32: without QK-norm, and with the init rule's std 1
+    for a one-layer attention stack, its scores reach the thousands, as
+    deepseek-moe-16b's do (`phase_serve_moe_bf16_vs_plain`); the bf16
+    plain attention's gap is recorded beside."""
+    from repro_torch.configs import get_config
+
+    release_memory()
+    prefill_kernel_vs_plain(
+        "serve_hybrid_bf16_vs_plain",
+        get_config(HYBRID_ARCH).with_overrides(num_layers=3), 6,
+        against="float32", prompt=HYBRID_PROMPT)
+
+
+# the recurrent families' float32 serve, card against CPU (logits; a cache
+# leaf's of its scale): see `serve_card_vs_cpu`
+RECURRENT_ATOL = 5e-3
+
+
+def forced_steps(bundle, params, batch, cache_len: int, toks):
+    """The serve session fed the given tokens [B, n] after the prompt:
+    (prefill logits and each decode's, the final cache)."""
+    from repro_torch.serve.loop import ServeSession
+
+    sess = ServeSession(bundle, params, cache_len)
+    logits = [sess.prefill(batch)]
+    for j in range(toks.shape[1] - 1):
+        logits.append(sess.decode(toks[:, j].to(bundle.device)))
+    return logits, sess.cache
+
+
+def serve_card_vs_cpu(phase, cfg, seed, batch, prompt, new, anchor64=False):
+    """``cfg`` (full width, 2 or 3 layers) in float32, ``batch`` rows of
     ``prompt`` tokens, ``new`` new tokens, on the card and on the CPU from
     the same weights: prefill and decode logits within rtol 1e-3, atol 5e-4
     (cache against recompute's tolerance in tests/test_models_smoke.py),
     greedy tokens equal. For a MoE model each layer's chosen experts are
-    compared too: a token whose experts differ must sit on a near-tie of its
-    router probabilities (`route_flips`), and the logits and tokens are
-    compared only over the batch rows whose routes agree in every call
-    (rows route apart: groups never span two). No row left to compare
-    fails the phase."""
+    compared too: a token whose experts differ must sit on a near-tie of
+    its router probabilities (`route_flips`), and the logits and tokens
+    are compared only over the batch rows whose routes agree in every
+    call (rows route apart: groups never span two). No row left to
+    compare fails the phase.
+
+    ``anchor64`` (the recurrent families): every leaf of the final cache
+    is compared too, and the limit is atol `RECURRENT_ATOL` (logits; for
+    a cache leaf, of its scale, its largest magnitude), rtol 1e-3. Their
+    float32 at full width departs from the function by more than 5e-4:
+    at the init's scale (activations up to ~1e11 in falcon-mamba-7b,
+    recurrent states fed through √(1 − a²) by 1 − exp(2·log a) near
+    a = 1) the card's and the CPU's roundings differ by up to ~1.5e-3.
+    So that the size of float32's own error stands beside the gaps, the
+    same steps also run on the CPU in float64 (float64 outside the
+    model's own float32 points), fed the CPU's tokens, and each device's
+    distance to that run is recorded."""
     from repro_torch import prng
     from repro_torch.models.factory import build_model
     from repro_torch.models.transformer import _layer_flags
@@ -1259,29 +1415,62 @@ def serve_card_vs_cpu(phase, cfg, seed, batch, prompt, new):
     cache_len = prompt + new
     t0 = time.perf_counter()
     with recorded_routes() as card_routes:
-        card_logits, card_toks = greedy_steps(on_card, params, prompts,
-                                              cache_len, new)
+        card_logits, card_toks, card_cache = greedy_steps(
+            on_card, params, prompts, cache_len, new)
         card_logits = [x.cpu() for x in card_logits]
+        card_cache = {k: v.cpu() for k, v in card_cache.items()}
     card_s = time.perf_counter() - t0
     params = tree_map(lambda t: t.cpu(), params)
     t0 = time.perf_counter()
     with recorded_routes() as cpu_routes:
-        cpu_logits, cpu_toks = greedy_steps(on_cpu, params, prompts,
-                                            cache_len, new)
+        cpu_logits, cpu_toks, cpu_cache = greedy_steps(
+            on_cpu, params, prompts, cache_len, new)
     cpu_s = time.perf_counter() - t0
     flips = route_flips(card_routes, cpu_routes)
     rows = [r for r in range(card_toks.shape[0])
             if all(f["row"] != r for f in flips)]
     gaps = [float((a[rows] - b[rows]).abs().max()) if rows else None
             for a, b in zip(card_logits, cpu_logits)]
-    close = [bool(torch.allclose(a[rows], b[rows], rtol=1e-3, atol=5e-4))
+    atol = RECURRENT_ATOL if anchor64 else 5e-4
+    close = [bool(torch.allclose(a[rows], b[rows], rtol=1e-3, atol=atol))
              for a, b in zip(card_logits, cpu_logits)]
     toks_equal = bool(torch.equal(card_toks.cpu()[rows], cpu_toks[rows]))
+    extra, cache_ok = {}, True
+    if anchor64:
+        cfg64 = cfg.with_overrides(dtype="float64", param_dtype="float64")
+        logits64, cache64 = forced_steps(
+            build_model(cfg64, "cpu"), tree_map(torch.Tensor.double, params),
+            prompts, cache_len, cpu_toks)
+        del params
+
+        def of_scale(a, b, ref):
+            return float((a.double() - b.double()).abs().max()
+                         / max(1.0, float(ref.abs().max())))
+
+        cache = {}
+        for key, want in cpu_cache.items():
+            got, ref = card_cache[key], cache64[key]
+            scale = max(1.0, float(want.abs().max()))
+            cache[key] = dict(
+                card_vs_cpu=of_scale(got, want, want),
+                card_vs_f64=of_scale(got, ref, ref),
+                cpu_vs_f64=of_scale(want, ref, ref),
+                within_tol=bool(torch.allclose(got, want, rtol=1e-3,
+                                               atol=atol * scale)))
+        extra = dict(
+            max_abs_logit_gap_card_vs_f64=[
+                float((a.double() - b).abs().max())
+                for a, b in zip(card_logits, logits64)],
+            max_abs_logit_gap_cpu_vs_f64=[
+                float((a.double() - b).abs().max())
+                for a, b in zip(cpu_logits, logits64)],
+            cache_gaps=cache)
+        cache_ok = all(c["within_tol"] for c in cache.values())
     rec = dict(phase=phase, arch=cfg.name, layers=cfg.num_layers,
                windows=_layer_flags(cfg).tolist(), batch=batch,
                prompt=prompt, new_tokens=new,
-               dtype=cfg.dtype, rtol=1e-3, atol=5e-4,
-               max_abs_logit_gap=gaps, within_tol=close,
+               dtype=cfg.dtype, rtol=1e-3, atol=atol,
+               max_abs_logit_gap=gaps, within_tol=close, **extra,
                rows_compared=rows, moe_layer_calls=len(card_routes),
                tokens_with_other_experts=len(flips),
                near_tie=NEAR_TIE, route_flips=flips,
@@ -1294,7 +1483,7 @@ def serve_card_vs_cpu(phase, cfg, seed, batch, prompt, new):
     if not rows:
         raise AssertionError(f"{phase}: every row's experts differ at a "
                              f"near-tie, no logits left to compare: {rec}")
-    if not all(close) or not toks_equal:
+    if not all(close) or not toks_equal or not cache_ok:
         raise AssertionError(f"{phase}: serve on the card and the CPU "
                              f"disagree: {rec}")
 
@@ -1323,6 +1512,21 @@ def phase_serve_moe_card_vs_cpu():
         "serve_moe_card_vs_cpu",
         get_config(MOE_ARCH).with_overrides(num_layers=2, dtype="float32"),
         5, 2, 512, 4)
+
+
+def phase_serve_recurrent_card_vs_cpu():
+    """recurrentgemma-2b at 3 layers (one group) and falcon-mamba-7b at 2,
+    full width, float32, batch 2, prompt 640 (the chunk halves to 128: 5
+    chunks in every scan), 4 new tokens."""
+    from repro_torch.configs import get_config
+
+    for arch, layers, seed in ((HYBRID_ARCH, 3, 7), (SSM_ARCH, 2, 8)):
+        release_memory()
+        serve_card_vs_cpu(
+            "serve_recurrent_card_vs_cpu",
+            get_config(arch).with_overrides(num_layers=layers,
+                                            dtype="float32"),
+            seed, 2, 640, 4, anchor64=True)
 
 
 # the training phase's shape: gemma3-4b at full width, depth cut from 34 to
@@ -1544,21 +1748,19 @@ def k1_over_tree(tcfg, state):
 # (the dense one and one MoE layer, 1.09 B params: SVRG's six float32 trees
 # take ~26 GB), batch 2, sequence 2048 (8 routing groups of 256 per row)
 TRAIN_MOE_LAYERS = 2
-TRAIN_MOE_SNAPSHOT_BATCHES = 1
+TRAIN_SNAPSHOT_BATCHES_FUSED = 1
 
 
-def phase_train_moe():
-    """The MoE training path at deepseek-moe-16b's full width, 2 layers,
-    float32 params, bf16 activations, ``remat="full"``, batch 2, sequence
-    2048 (random weights from seed 0, `SyntheticLMDataset` seed 0): a
-    snapshot over one batch and one unfused step (the warm-up's lr 0), then
-    2 fused SVRG steps against 2 unfused ones, each from the same state: params allclose (rtol 1e-5, atol 1e-6),
-    metrics equal (the loss holds the router aux), K1 launched once per
-    leaf per fused step (the expert leaves [1, 64, 2048, 1408] viewed
-    [numel/1408, 1408]), K4 never. K1's ms per fused step beside its
-    bound."""
+def fused_train_phase(phase, cfg, **fields):
+    """The training path of ``cfg`` (full width, its depth cut), float32
+    params, bf16 activations, ``remat="full"``, batch 2, sequence 2048
+    (random weights from seed 0, `SyntheticLMDataset` seed 0): a snapshot
+    over one batch and one unfused step (the warm-up's lr 0), then 2 fused
+    SVRG steps against 2 unfused ones, each from the same state: params
+    allclose (rtol 1e-5, atol 1e-6), metrics equal, K1 launched once per
+    leaf per fused step, K4 never. K1's ms per fused step beside its
+    bound. ``fields`` join the record."""
     from repro_torch.config import SVRGConfig, TrainConfig
-    from repro_torch.configs import get_config
     from repro_torch.data.synthetic_lm import SyntheticLMDataset
     from repro_torch.models.factory import build_model
     from repro_torch.train.loop import device_batch
@@ -1568,14 +1770,13 @@ def phase_train_moe():
 
     release_memory()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(MOE_ARCH).with_overrides(num_layers=TRAIN_MOE_LAYERS)
     bundle = build_model(cfg, "cuda")
     # warm-up of one step: step 0's lr is 0, so one unfused step comes
     # before the compared ones
     tcfg = TrainConfig(optimizer="svrg", learning_rate=TRAIN_LR, seed=0,
                        warmup_steps=1,
                        svrg=SVRGConfig(
-                           snapshot_batches=TRAIN_MOE_SNAPSHOT_BATCHES))
+                           snapshot_batches=TRAIN_SNAPSHOT_BATCHES_FUSED))
     ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
     state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
                              bundle, tcfg)
@@ -1584,30 +1785,28 @@ def phase_train_moe():
     reset_counts()
     t0 = time.perf_counter()
     state = begin(state)
-    for j in range(TRAIN_MOE_SNAPSHOT_BATCHES):
+    for j in range(TRAIN_SNAPSHOT_BATCHES_FUSED):
         state = accum(state, device_batch(ds.batch_at(j), "cuda"))
     state = fin(state)
     torch.cuda.synchronize()
     snapshot_s = time.perf_counter() - t0
     state, first = make_train_step(bundle, tcfg)(state, device_batch(
-        ds.batch_at(TRAIN_MOE_SNAPSHOT_BATCHES), "cuda"))
+        ds.batch_at(TRAIN_SNAPSHOT_BATCHES_FUSED), "cuda"))
     snapshot_counts = read_counts()
     leaves = len(tree_leaves(state.params))
     state, compare, fused_counts = fused_vs_unfused(
         bundle, tcfg, state,
-        [ds.batch_at(TRAIN_MOE_SNAPSHOT_BATCHES + 1 + i)
+        [ds.batch_at(TRAIN_SNAPSHOT_BATCHES_FUSED + 1 + i)
          for i in range(TRAIN_FUSED_STEPS)])
     peak = torch.cuda.max_memory_allocated() / 1e9
     k1_ms, k1_bound, k1_by, torch_ms = k1_over_tree(tcfg, state)
-    rec = dict(phase="train_moe", arch=cfg.name, layers=cfg.num_layers,
-               first_dense_layers=cfg.first_dense_layers,
-               experts=cfg.num_experts, top_k=cfg.experts_per_token,
+    rec = dict(phase=phase, arch=cfg.name, layers=cfg.num_layers, **fields,
                d_model=cfg.d_model, vocab=cfg.vocab_size,
                params=tree_size(state.params), leaves=leaves,
                batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype=cfg.dtype,
                param_dtype=cfg.param_dtype, remat=cfg.remat,
                optimizer=tcfg.optimizer, lr=TRAIN_LR,
-               snapshot_batches=TRAIN_MOE_SNAPSHOT_BATCHES,
+               snapshot_batches=TRAIN_SNAPSHOT_BATCHES_FUSED,
                snapshot_s=snapshot_s, snapshot_launches=snapshot_counts,
                first_step_loss=float(first["loss"]),
                fused_vs_unfused=compare, fused_launches=fused_counts,
@@ -1618,12 +1817,44 @@ def phase_train_moe():
                peak_memory_gb=peak)
     emit(**rec)
     if not all(np.isfinite(c["metrics_unfused"]["loss"]) for c in compare):
-        raise AssertionError(f"train_moe: losses {compare}")
+        raise AssertionError(f"{phase}: losses {compare}")
     if snapshot_counts != dict.fromkeys(snapshot_counts, 0):
-        raise AssertionError(f"train_moe snapshot launch counts "
+        raise AssertionError(f"{phase} snapshot launch counts "
                              f"{snapshot_counts}")
-    check_fused(compare, fused_counts, leaves, "train_moe")
+    check_fused(compare, fused_counts, leaves, phase)
     return rec
+
+
+def phase_train_moe():
+    """The MoE training path at deepseek-moe-16b's full width, 2 layers
+    (the expert leaves [1, 64, 2048, 1408] viewed [numel/1408, 1408] by
+    K1; the loss holds the router aux)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH).with_overrides(num_layers=TRAIN_MOE_LAYERS)
+    return fused_train_phase(
+        "train_moe", cfg, first_dense_layers=cfg.first_dense_layers,
+        experts=cfg.num_experts, top_k=cfg.experts_per_token)
+
+
+# the recurrent families' training shapes: recurrentgemma-2b at 5 layers
+# (one group + 2 trailing RG-LRU layers, 1.05 B params), falcon-mamba-7b
+# at 2 (0.74 B params); at sequence 2048 each RG-LRU scan takes 4 chunks
+# of 512 and each selective scan 8 of 256, rematerialised under grad
+TRAIN_RECURRENT = ((HYBRID_ARCH, 5), (SSM_ARCH, 2))
+
+
+def phase_train_recurrent():
+    """Both recurrent families' training paths (`fused_train_phase`);
+    returns {family: record}."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, layers in TRAIN_RECURRENT:
+        cfg = get_config(arch).with_overrides(num_layers=layers)
+        out[cfg.family] = fused_train_phase("train_recurrent", cfg,
+                                            family=cfg.family)
+    return out
 
 
 def phase_train_card_vs_cpu():
@@ -1762,6 +1993,28 @@ def main() -> int:
     train_moe_rec = phase_train_moe()
     emit(phase="train_moe_done", seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
+    hybrid_counts = phase_serve_hybrid(report)
+    emit(phase="serve_hybrid_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_serve_hybrid_bf16_vs_plain()
+    emit(phase="serve_hybrid_bf16_vs_plain_done",
+         seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_serve_ssm()
+    emit(phase="serve_ssm_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_serve_recurrent_card_vs_cpu()
+    emit(phase="serve_recurrent_card_vs_cpu_done",
+         seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    train_recurrent = phase_train_recurrent()
+    emit(phase="train_recurrent_done", seconds=time.perf_counter() - t0)
+
     replaces = {"svrg_update": "src/repro/kernels/svrg_update/kernel.py:23",
                 "logreg_grad": "src/repro/kernels/logreg_grad/kernel.py:31",
                 "sweep_epoch": "src/repro/kernels/sweep_epoch/kernel.py:92",
@@ -1803,6 +2056,13 @@ def main() -> int:
         moe_train_ms_per_fused_step=train_moe_rec["k1_ms_per_fused_step"],
         moe_train_bound_ms_per_fused_step=train_moe_rec[
             "k1_bound_ms_per_fused_step"])
+    for family, rec in train_recurrent.items():
+        kernels[0].update({
+            f"{family}_train_launches_per_fused_step":
+                rec["k1_launches_per_fused_step"],
+            f"{family}_train_ms_per_fused_step": rec["k1_ms_per_fused_step"],
+            f"{family}_train_bound_ms_per_fused_step":
+                rec["k1_bound_ms_per_fused_step"]})
     # K4 on the deepseek-moe-16b serve path too: launches per prefill, and
     # its time at that shape beside SDPA and the bound
     moe_k4 = report["flash_attention"]["moe"]
@@ -1811,6 +2071,14 @@ def main() -> int:
         moe_ms=moe_k4["ms"], moe_plain_ms=moe_k4["plain_ms"],
         moe_library_ms=moe_k4["library_ms"], moe_bound_ms=moe_k4["bound_ms"],
         moe_max_abs_err=moe_k4["max_abs_err"])
+    # and on the recurrentgemma-2b serve path: 8 launches a prefill
+    hybrid_k4 = report["flash_attention"]["hybrid"]
+    kernels[3].update(
+        hybrid_launches_per_prefill=hybrid_counts["flash_attention"],
+        hybrid_ms=hybrid_k4["ms"], hybrid_plain_ms=hybrid_k4["plain_ms"],
+        hybrid_library_ms=hybrid_k4["library_ms"],
+        hybrid_bound_ms=hybrid_k4["bound_ms"],
+        hybrid_max_abs_err=hybrid_k4["max_abs_err"])
     emit(phase="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

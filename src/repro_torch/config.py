@@ -21,7 +21,7 @@ class ModelConfig:
     - ``ssm``     attention-free Mamba1 selective-SSM stack
     - ``logreg``  the paper's own workload (L2-regularized logistic regression)
 
-    The port's model factory builds ``dense``, ``moe`` and ``logreg`` so
+    The port's model factory builds all but ``encdec`` and ``vlm`` so
     far.
     """
 

@@ -2,8 +2,9 @@
 smoke configs, as in the JAX package's ``configs/registry.py``.
 
 The port registers the architectures its model factory builds (the four
-dense ones, the two mixture-of-experts ones, and the paper's logistic
-regression), each module a field-for-field copy of the JAX package's.
+dense ones, the two mixture-of-experts ones, the hybrid recurrentgemma-2b,
+the SSM falcon-mamba-7b, and the paper's logistic regression), each module
+a field-for-field copy of the JAX package's.
 ``reduced_config`` shrinks one to a CPU-testable size of the same family
 without changing the code path exercised.
 """
@@ -24,8 +25,9 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
-        chatglm3_6b, command_r_plus_104b, deepseek_moe_16b, gemma3_4b,
-        paper_logreg, qwen3_moe_235b, stablelm_12b,
+        chatglm3_6b, command_r_plus_104b, deepseek_moe_16b, falcon_mamba_7b,
+        gemma3_4b, paper_logreg, qwen3_moe_235b, recurrentgemma_2b,
+        stablelm_12b,
     )
 
 
@@ -43,7 +45,7 @@ def list_configs() -> List[str]:
 
 def reduced_config(name: str) -> ModelConfig:
     """Same-family miniature for CPU tests (the JAX package's reduction for
-    the dense, moe and logreg families)."""
+    the dense, moe, hybrid, ssm and logreg families)."""
     cfg = get_config(name)
     kw = dict(
         num_layers=min(cfg.num_layers, 4),
@@ -63,6 +65,11 @@ def reduced_config(name: str) -> ModelConfig:
                   num_shared_experts=cfg.num_shared_experts and 1,
                   first_dense_layers=min(1, cfg.first_dense_layers),
                   d_ff=0)
+    if cfg.family == "hybrid":
+        kw.update(num_layers=5, lru_width=128, num_heads=4, local_window=8)
+    if cfg.family == "ssm":
+        kw.update(num_layers=4, ssm_state=4, expand=2, dt_rank=8,
+                  num_heads=1, num_kv_heads=1, head_dim=1, d_ff=0)
     if cfg.attn_pattern == "local_global":
         kw.update(local_window=8, global_every=min(3, cfg.global_every))
     if cfg.family == "logreg":

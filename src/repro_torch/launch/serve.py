@@ -6,6 +6,10 @@
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
       --batch 4 --prompt-len 2048 --new-tokens 16          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+      --batch 4 --prompt-len 4096 --new-tokens 16          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+      --reduced --device cpu
 
 The prompts are ``prng.randint(PRNGKey(seed), (batch, prompt_len), 0, V)``,
 the JAX package's prompts bit for bit; the weights are drawn by

@@ -9,6 +9,12 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \\
       --reduced --steps 100 --optimizer sgd --checkpoint-dir build/ckpt
 
+  # the hybrid and SSM families take the same flags:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+      --reduced --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch recurrentgemma-2b --reduced --steps 20
+
 The flags are the JAX package's plus ``--device``. The data is
 `SyntheticLMDataset` from ``--seed``; the params are drawn on the device
 from a generator seeded with ``--seed``. Prints the steps per second and

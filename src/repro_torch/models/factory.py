@@ -1,13 +1,14 @@
 """Model factory: ``ModelConfig.family`` -> the family module, bundled as
 uniform (loss_fn, prefill, decode_step, param_defs, cache_defs, make_inputs)
 functions for the train loop and the serve loop; the port of the JAX
-package's ``models/factory.py`` for the dense and moe families and the
-paper's logistic regression (``logreg``: a loss and its inputs, no serve
-path). ``input_specs`` (the dry-run's shape-only batch) waits for
-``launch/dryrun``.
+package's ``models/factory.py`` for the dense, moe, hybrid (``rglru``) and
+ssm (``mamba``) families and the paper's logistic regression (``logreg``:
+a loss and its inputs, no serve path). ``input_specs`` (the dry-run's
+shape-only batch) waits for ``launch/dryrun``.
 """
 from __future__ import annotations
 
+import importlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -23,9 +24,9 @@ from repro_torch.utils.tree import tree_map
 _NOT_PORTED = {
     "encdec": "ROADMAP Queue 1 item 4 (models/encdec.py)",
     "vlm": "ROADMAP Queue 1 item 4 (models/vlm.py)",
-    "hybrid": "ROADMAP Queue 1 item 4 (models/rglru.py)",
-    "ssm": "ROADMAP Queue 1 item 4 (models/mamba.py)",
 }
+_MODULES = {"dense": "transformer", "moe": "moe", "hybrid": "rglru",
+            "ssm": "mamba"}
 
 
 @dataclass
@@ -48,15 +49,12 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
     if fam in _NOT_PORTED:
         raise NotImplementedError(
             f"family {fam!r} is not ported yet: {_NOT_PORTED[fam]}")
-    if fam not in ("dense", "moe", "logreg"):
+    if fam not in _MODULES and fam != "logreg":
         raise ValueError(f"unknown family {fam!r}")
     device = default_device(device)
     if fam == "logreg":
         return _build_logreg(cfg, device)
-    if fam == "moe":
-        from repro_torch.models import moe as mod
-    else:
-        from repro_torch.models import transformer as mod
+    mod = importlib.import_module(f"repro_torch.models.{_MODULES[fam]}")
     act_dtype = getattr(torch, cfg.dtype)
 
     def cast(params: Dict) -> Dict:

@@ -699,3 +699,67 @@ def test_moe_serve_on_the_card_matches_cpu(gen, arch, monkeypatch):
     assert len(got_routes) == len(want_routes) > 0
     for a, b in zip(got_routes, want_routes):
         assert torch.equal(a.topi.cpu(), b.topi)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,prompt,attention_layers",
+                         [("recurrentgemma-2b", 13, 1),
+                          ("falcon-mamba-7b", 24, 0)])
+def test_recurrent_serve_on_the_card_matches_cpu(gen, arch, prompt,
+                                                 attention_layers):
+    """The reduced hybrid (window 8: the prompt of 13 wraps the ring) and
+    SSM models in float32: prefill and 4 decode steps on the card against
+    the CPU from the same weights, logits and every cache leaf within rtol
+    1e-3, atol 5e-4 (of the leaf's scale for the caches); one
+    `flash_attention` launch per attention layer at prefill, none in
+    decode or for the SSM; a 3-chunk scan under grad gives finite
+    gradients (the loss's backward rematerialises each chunk)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.distributed import value_and_grad
+    from repro_torch.models import mamba, rglru
+    from repro_torch.models.factory import build_model
+    from repro_torch.sharding.rules import init_from_defs, tree_map
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    card, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    params = init_from_defs(gen, card.param_defs)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    toks = prng.randint(prng.PRNGKey(5), (2, prompt + 4), 0, cfg.vocab_size)
+    out = {}
+    for name, bundle, p in (("card", card, params), ("cpu", cpu, cpu_params)):
+        t = toks.to(bundle.device)
+        before = gqa_flash.launches
+        logits, cache = bundle.prefill_fn(p, {"tokens": t[:, :prompt]},
+                                          prompt + 4)
+        launches = gqa_flash.launches - before
+        seen = [logits.cpu()]
+        for step in range(4):
+            logits, cache = bundle.decode_fn(p, cache, t[:, prompt + step],
+                                             prompt + step)
+            seen.append(logits.cpu())
+        out[name] = (seen, {k: v.cpu() for k, v in cache.items()}, launches,
+                     gqa_flash.launches - before - launches)
+    (card_logits, card_cache, prefill_n, decode_n), (cpu_logits, cpu_cache,
+                                                    _, _) = out["card"], out["cpu"]
+    assert (prefill_n, decode_n) == (attention_layers, 0)
+    for a, b in zip(card_logits, cpu_logits):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=5e-4)
+    for key in cpu_cache:
+        scale = float(cpu_cache[key].abs().max())
+        torch.testing.assert_close(card_cache[key], cpu_cache[key], rtol=1e-3,
+                                   atol=5e-4 * max(1.0, scale), msg=key)
+    mod = rglru if cfg.family == "hybrid" else mamba
+    old = mod.CHUNK
+    mod.CHUNK = 8
+    try:
+        batch = card.make_inputs(2, 24, gen)
+        loss, grad = value_and_grad(card.loss_fn)(params, batch)
+    finally:
+        mod.CHUNK = old
+    assert bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in tree_leaves(grad))

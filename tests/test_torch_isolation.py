@@ -69,6 +69,13 @@ MOE_MODULES = (
     "repro_torch.configs.qwen3_moe_235b", "repro_torch.configs.paper_logreg")
 
 
+# the modules of the recurrent slice
+RECURRENT_MODULES = (
+    "repro_torch.models.rglru", "repro_torch.models.mamba",
+    "repro_torch.configs.recurrentgemma_2b",
+    "repro_torch.configs.falcon_mamba_7b")
+
+
 def _assert_checked(modules):
     proc = _run([sys.executable, "-c", _LIST_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
@@ -85,6 +92,10 @@ def test_checks_cover_the_training_modules():
 
 def test_checks_cover_the_moe_modules():
     _assert_checked(MOE_MODULES)
+
+
+def test_checks_cover_the_recurrent_modules():
+    _assert_checked(RECURRENT_MODULES)
 
 
 def test_source_never_names_jax_or_repro():

@@ -36,8 +36,9 @@ from repro_torch.sharding.rules import ParamDef, init_from_defs
 
 DENSE = ["chatglm3-6b", "command-r-plus-104b", "gemma3-4b", "stablelm-12b"]
 # every arch the port registers: the dense ones, the mixture-of-experts
-# ones and the paper's logistic regression
+# ones, the hybrid and SSM ones and the paper's logistic regression
 PORTED = sorted(DENSE + ["deepseek-moe-16b", "qwen3-moe-235b-a22b",
+                         "recurrentgemma-2b", "falcon-mamba-7b",
                          "paper-logreg"])
 
 
@@ -133,7 +134,7 @@ def test_init_from_defs_scales_in_place_with_the_old_bits(dtype):
 
 
 def test_factory_raises_for_families_not_ported():
-    cfg = dataclasses.replace(get_config("gemma3-4b"), family="ssm")
+    cfg = dataclasses.replace(get_config("gemma3-4b"), family="encdec")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
 

@@ -28,7 +28,8 @@ def _plain_f32(q, k, v, window):
 
 
 @pytest.mark.parametrize("S,N,K,h,window", [(1024, 4, 4, 128, 0),
-                                            (1024, 4, 2, 256, 256)])
+                                            (1024, 4, 2, 256, 256),
+                                            (1024, 10, 1, 256, 512)])
 def test_bf16_limit_passes_rounding_and_rejects_planted_faults(S, N, K, h,
                                                                window):
     rng = np.random.default_rng(S + N + h + window)

@@ -6,6 +6,8 @@ on the card.
     python3 tools/profile_port.py batched      # the batched engine and K1's host path
     python3 tools/profile_port.py serve        # the serve path only
     python3 tools/profile_port.py serve_moe    # the deepseek-moe-16b serve path
+    python3 tools/profile_port.py serve_hybrid # recurrentgemma-2b, prompt 4096
+    python3 tools/profile_port.py serve_ssm    # the falcon-mamba-7b serve path
     python3 tools/profile_port.py sweep_epoch  # the fused engine and K3 only
     python3 tools/profile_port.py train        # one SVRG train step only
 
@@ -54,8 +56,10 @@ At the rcv1 width (n = 20242, p = 2048; data from
     allocations (`cudaMalloc`s of PyTorch's caching allocator) it made; the
     device kernels are also summed by kind (as in the `train` mode). The
     `serve_moe` mode does the same at deepseek-moe-16b's full width and
-    depth (28 layers, 64 experts; not part of the default run). The weights
-    are drawn in bf16, as `launch.serve.run` draws them.
+    depth (28 layers, 64 experts), `serve_hybrid` at recurrentgemma-2b's
+    (26 layers, prompt 4096) and `serve_ssm` at falcon-mamba-7b's (64
+    layers); none is part of the default run. The weights are drawn in
+    bf16, as `launch.serve.run` draws them.
 
 The `train` mode (not part of the default run): gemma3-4b at full width
 and 12 layers, batch 2, sequence 2048 (chip_smoke.py's training phase), one
@@ -401,10 +405,11 @@ def _summary(events, wall: float, steps: int) -> dict:
     }
 
 
-def profile_serve(arch: str = "gemma3-4b", decode_steps: int = 4) -> None:
-    """``arch`` at full width (chip_smoke.py's serve phases: batch 4, prompt
-    2048, bf16): one prefill, then ``decode_steps`` decode steps, each
-    window timed without and under the profiler."""
+def profile_serve(arch: str = "gemma3-4b", decode_steps: int = 4,
+                  prompt: int = 2048) -> None:
+    """``arch`` at full width (chip_smoke.py's serve phases: batch 4,
+    ``prompt`` tokens, bf16): one prefill, then ``decode_steps`` decode
+    steps, each window timed without and under the profiler."""
     from repro_torch import prng
     from repro_torch.launch.serve import serve_config
     from repro_torch.models.factory import build_model
@@ -415,12 +420,12 @@ def profile_serve(arch: str = "gemma3-4b", decode_steps: int = 4) -> None:
     bundle = build_model(cfg, "cuda")
     params = init_from_defs(torch.Generator(device="cuda").manual_seed(0),
                             bundle.param_defs)
-    batch = {"tokens": prng.randint(prng.PRNGKey(0, "cuda"), (4, 2048), 0,
+    batch = {"tokens": prng.randint(prng.PRNGKey(0, "cuda"), (4, prompt), 0,
                                     cfg.vocab_size)}
-    sess = ServeSession(bundle, params, 2048 + 4 * decode_steps)
+    sess = ServeSession(bundle, params, prompt + 4 * decode_steps)
     wall, prof_wall, events = _profiled(lambda: sess.prefill(batch))
     print(json.dumps({"serve": "prefill", "arch": cfg.name, "batch": 4,
-                      "prompt": 2048, "wall_s": wall,
+                      "prompt": prompt, "wall_s": wall,
                       "profiled_wall_s": prof_wall,
                       "device_ms_by_kind": _kinds(events, 1),
                       **_summary(events, prof_wall, 1)}), flush=True)
@@ -438,7 +443,7 @@ def profile_serve(arch: str = "gemma3-4b", decode_steps: int = 4) -> None:
                       "device_ms_by_kind": _kinds(events, decode_steps),
                       **_summary(events, prof_wall, decode_steps)}), flush=True)
 
-    sess = ServeSession(bundle, params, 2048)
+    sess = ServeSession(bundle, params, prompt)
     for i in range(5):
         allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
         start = torch.cuda.Event(enable_timing=True)
@@ -532,6 +537,12 @@ def main(argv=None) -> int:
         return 0
     if argv == ["serve_moe"]:
         profile_serve("deepseek-moe-16b")
+        return 0
+    if argv == ["serve_hybrid"]:
+        profile_serve("recurrentgemma-2b", prompt=4096)
+        return 0
+    if argv == ["serve_ssm"]:
+        profile_serve("falcon-mamba-7b")
         return 0
     if argv == ["train"]:
         profile_train()
