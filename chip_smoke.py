@@ -14,7 +14,8 @@ the ring and the staged rows that fits, bit-equal at the main path's shape;
 its in-kernel generator bit for bit against `repro_torch.prng`), and
 `flash_attention` at gemma3-4b's prefill shapes (windows 0 and 1024, bf16
 on the tensor-core kernel and float32 on the CUDA-core one, a ragged
-length, GQA 16:1) and deepseek-moe-16b's (MHA, h = 128, global), timed
+length, GQA 16:1), deepseek-moe-16b's (MHA, h = 128, global),
+recurrentgemma-2b's, whisper-large-v3's and llama-3.2-vision-11b's, timed
 beside its plain version, the CUDA-core kernel on the same bf16 inputs and
 `scaled_dot_product_attention`; the tensor-core
 library's SASS must hold `HGMMA` and `UTMALDG`, the sweep library's the bulk
@@ -113,6 +114,34 @@ MQA N 10 over K 1, h 256, window 2048, among the kernel checks above):
     params, bf16 activations, rematerialised, batch 2, sequence 2048: 2
     fused SVRG steps against 2 unfused ones, one K1 launch per leaf, no
     K4.
+
+and the encoder-decoder and vision families at full width (random
+weights, bf16 activations; K4's cases at their prefill shapes among the
+kernel checks above, with a key length of its own where the attention is
+an encoder's over its valid frames or a cross-attention):
+
+  * `launch.serve.run` for whisper-large-v3 (32 encoder layers over 1500
+    frames padded to 1504, 32 decoder layers) at batch 4, prompt 448, 16
+    new tokens, its frame embeddings drawn from a seed: 96
+    `flash_attention` launches per prefill (the encoder's, the decoder's
+    self-attention and the cross-attention, 32 each), all on the
+    tensor-core route, none in decode; and for llama-3.2-vision-11b (8
+    groups of [self, self, self, cross, self]) at prompt 2048 beside 1601
+    drawn patch embeddings: 40 launches per prefill; prefill seconds,
+    decode ms per token, tokens/s, peak memory;
+  * whisper-large-v3 at 2 encoder + 2 decoder layers and
+    llama-3.2-vision-11b at 5 in bf16, batch 1, every zero-initialised
+    leaf drawn (the tanh gates non-zero): the prefill through the
+    tensor-core kernel against the plain attention in float32, in the
+    logits and in the first attention layer's output;
+  * the same depths in float32, batch 2, prompts 64 and 128, 4 new
+    tokens, on the card and on the CPU from the same weights: logits,
+    greedy tokens and every cache leaf (the padded frames' rows
+    included), each device's distance to a float64 run recorded beside;
+  * whisper-large-v3 at full depth and llama-3.2-vision-11b at 5 layers,
+    float32 params, bf16 activations, rematerialised, batch 2, sequence
+    2048: 2 fused SVRG steps against 2 unfused ones, one K1 launch per
+    leaf, no K4.
 
 `sweep_epoch` is held against its plain version at the main path's shape
 (the 4-row rcv1 group, 40480 inner updates); its other cases (Hogwild!,
@@ -519,11 +548,31 @@ MOE_K4_CASE = "moe_global_bf16"
 HYBRID_ARCH, HYBRID_PROMPT, HYBRID_ATTN_LAYERS = "recurrentgemma-2b", 4096, 8
 HYBRID_K4_CASE = "hybrid_mqa_window_bf16"
 SSM_ARCH = "falcon-mamba-7b"
+# whisper-large-v3's prefill at batch 4, prompt 448 (its decoder context):
+# per decoder layer K4 runs the encoder's attention (1504 padded frames
+# over the 1500 valid, non-causal), the decoder's causal self-attention
+# (448) and the cross-attention (448 over 1500); MHA N = K = 20, h = 64.
+# llama-3.2-vision-11b's at prompt 2048: 32 causal self layers (GQA 32:8,
+# h = 128) and 8 cross layers over its 1601 image tokens
+ENCDEC_ARCH, ENCDEC_PROMPT, ENCDEC_LAYERS = "whisper-large-v3", 448, 32
+ENCDEC_FRAMES, ENCDEC_FRAMES_PADDED = 1500, 1504
+VLM_ARCH, VLM_SELF_LAYERS, VLM_CROSS_LAYERS = "llama-3.2-vision-11b", 32, 8
+VLM_IMAGE_TOKENS = 1601
+# K4's cases on these paths: {case: (family, the part of a prefill it is)}
+ENCDEC_VLM_K4_CASES = {"encdec_encoder_bf16": ("encdec", "encoder"),
+                       "encdec_cross_bf16": ("encdec", "cross"),
+                       "encdec_self_bf16": ("encdec", "self"),
+                       "vlm_self_bf16": ("vlm", "self"),
+                       "vlm_cross_bf16": ("vlm", "cross")}
 
 
-def attention_pairs(S: int, window: int) -> int:
+def attention_pairs(S: int, window: int, causal: bool = True,
+                    Sk: int = 0) -> int:
     """Unmasked (query, key) pairs of one head under the causal mask and
-    ``window`` (0 = global)."""
+    ``window`` (0 = global); not causal, every pair of S queries and ``Sk``
+    keys."""
+    if not causal:
+        return S * Sk
     rows = np.arange(S, dtype=np.int64) + 1
     return int(np.minimum(rows, window).sum() if window else rows.sum())
 
@@ -553,31 +602,49 @@ def attention_gaps(out, ref):
     return elem, row
 
 
-def planted_faults(q, k, v, out, window):
-    """Two faults the bf16 limit must reject, made from this case's inputs:
-    each query block's last KV tile dropped on the rows of the second half
-    (the attention there computed in float32 without those keys, rounded
-    to bf16), and the kernel's output 2% too large: {name: faulty
-    output}."""
-    B, S, N, h = q.shape
-    bk = 32 if h >= 192 else 64   # the tensor-core kernel's keys per tile
-    pos = torch.arange(S, device=q.device)
-    i, j = pos[:, None], pos[None, :]
-    ok = i >= j
-    if window:
-        ok &= (i - j) < window
-    ok &= ~((i >= S // 2) & (j >= (i // 64) * 64 + 64 - bk))
-    G = N // k.shape[2]
+def _f32_attention(q, k, v, ok):
+    """Attention in float32 of q [B, Sq, N, h] over k, v [B, Sk, K, h]
+    where ``ok`` [Sq, Sk], rounded to q's dtype."""
+    G = q.shape[2] // k.shape[2]
     qt = q.float().transpose(1, 2)
     kt, vt = (t.float().transpose(1, 2).repeat_interleave(G, dim=1)
               for t in (k, v))
-    scores = (qt @ kt.transpose(-1, -2)) / float(np.sqrt(h))
+    scores = (qt @ kt.transpose(-1, -2)) / float(np.sqrt(q.shape[-1]))
     probs = torch.softmax(scores.masked_fill(~ok, float("-inf")), dim=-1)
     del scores
-    dropped = (probs @ vt).transpose(1, 2).to(q.dtype)
-    del probs
-    return {"last_kv_tile_dropped_past_half": dropped,
-            "output_2pct_too_large": (out.float() * 1.02).to(out.dtype)}
+    return (probs @ vt).transpose(1, 2).to(q.dtype)
+
+
+def planted_faults(q, k, v, out, window, causal=True, k_pad=None,
+                   v_pad=None):
+    """Faults the limit must reject, made from this case's inputs: each
+    query block's last KV tile dropped on the rows of the second half
+    (the attention there computed in float32 without those keys, rounded
+    to q's dtype), and the kernel's output 2% too large; where k and v
+    are the first Sk rows of longer buffers ``k_pad``, ``v_pad`` (a key
+    length of its own), the attention over the buffers' every row, the
+    padded keys counted: {name: faulty output}."""
+    Sq, h = q.shape[1], q.shape[-1]
+    Sk = k.shape[1]
+    bk = 32 if h >= 192 else 64   # the tensor-core kernel's keys per tile
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= i >= j
+        last = (i // 64) * 64 + 64 - bk
+    else:
+        last = (Sk - 1) // bk * bk
+    if window:
+        ok &= (i - j) < window
+    faults = {"last_kv_tile_dropped_past_half": _f32_attention(
+                  q, k, v, ok & ~((i >= Sq // 2) & (j >= last))),
+              "output_2pct_too_large": (out.float() * 1.02).to(out.dtype)}
+    if k_pad is not None:
+        faults["padded_keys_counted"] = _f32_attention(
+            q, k_pad, v_pad, torch.ones((Sq, k_pad.shape[1]),
+                                        dtype=torch.bool, device=q.device))
+    return faults
 
 
 def flash_attention_vs_plain(gen):
@@ -588,59 +655,97 @@ def flash_attention_vs_plain(gen):
     planted faults of `planted_faults` must fail them) and float32 on the
     CUDA-core route (F32_TOL), a ragged S = 2000, GQA 16:1 at h = 128, and
     deepseek-moe-16b's prefill shape (B 4, S 2048, N = K = 16, h 128,
-    global; bf16) and recurrentgemma-2b's (B 4, S 4096, MQA N 10 over K 1,
-    h 256, window 2048; bf16). The bf16 main
-    cases, deepseek's and recurrentgemma's are timed beside the plain
-    version, the CUDA-core kernel on the same bf16 inputs (the kernel
-    before the tensor-core one) and `scaled_dot_product_attention` (the
-    yardstick, with the band as a mask for a window; the port never calls
-    it). Returns the kernel's record, per launch averaged over one
-    gemma3-4b prefill's 34 layers, with deepseek's case under ``moe`` (28
-    launches a prefill) and recurrentgemma's under ``hybrid`` (8)."""
+    global; bf16), recurrentgemma-2b's (B 4, S 4096, MQA N 10 over K 1,
+    h 256, window 2048; bf16), whisper-large-v3's three (B 4, MHA N = K =
+    20, h 64: the encoder's 1504 queries over the first 1500 rows of a
+    1504-row key buffer, the cross-attention's 448 over the same, both
+    non-causal, the decoder's causal 448; bf16, and the cross-attention in
+    float32) and llama-3.2-vision-11b's two (B 4, GQA 32:8, h 128: causal
+    2048, and 2048 queries over 1601 image tokens, non-causal, read as the
+    first rows of a buffer padded to 1616). A case with a key length of
+    its own must also reject the attention with the buffer's padded keys
+    counted. The bf16 main cases, deepseek's, recurrentgemma's, whisper's
+    and the vision model's are timed beside the plain version, the
+    CUDA-core kernel on the same bf16 inputs (the kernel before the
+    tensor-core one) and `scaled_dot_product_attention` (the yardstick,
+    with the band as a mask for a window, non-causal for a key length of
+    its own; the port never calls it). Returns the kernel's record, per
+    launch averaged over one gemma3-4b prefill's 34 layers, with
+    deepseek's case under ``moe`` (28 launches a prefill),
+    recurrentgemma's under ``hybrid`` (8), whisper's under ``encdec`` (96)
+    and the vision model's under ``vlm`` (40)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    def plain(q, k, v, window):
+    def plain(q, k, v, window, causal=True):
         G = q.shape[2] // k.shape[2]
         kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1) for t in (k, v))
-        return attention_ref(q.transpose(1, 2), kt, vt, window=window
-                             ).transpose(1, 2)
+        return attention_ref(q.transpose(1, 2), kt, vt, causal=causal,
+                             window=window).transpose(1, 2)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    # (name, B, S, N, K, h, window, dtype, timed)
-    cases = [("serve_window_bf16", 4, 2048, 8, 4, 256, 1024, bf16, True),
-             ("serve_global_bf16", 4, 2048, 8, 4, 256, 0, bf16, True),
-             ("serve_window_f32", 4, 2048, 8, 4, 256, 1024, f32, False),
-             ("serve_global_f32", 4, 2048, 8, 4, 256, 0, f32, False),
-             ("ragged_S2000_window_bf16", 4, 2000, 8, 4, 256, 1024, bf16,
-              False),
-             ("gqa_16to1_h128_bf16", 4, 2048, 16, 1, 128, 0, bf16, False),
-             (MOE_K4_CASE, 4, 2048, 16, 16, 128, 0, bf16, True),
-             (HYBRID_K4_CASE, 4, HYBRID_PROMPT, 10, 1, 256, 2048, bf16, True)]
+
+    def case(name, B, S, N, K, h, window, dtype, timed, Sk=None, pad=None):
+        """S queries over Sk keys (default S, causal; else non-causal), the
+        first Sk rows of a key buffer of ``pad`` rows (default Sk)."""
+        return dict(name=name, B=B, Sq=S, Sk=Sk or S, Sp=pad or Sk or S, N=N,
+                    K=K, h=h, window=window, causal=Sk is None, dtype=dtype,
+                    timed=timed)
+
+    E, Ep = ENCDEC_FRAMES, ENCDEC_FRAMES_PADDED
+    T = VLM_IMAGE_TOKENS
+    cases = [case("serve_window_bf16", 4, 2048, 8, 4, 256, 1024, bf16, True),
+             case("serve_global_bf16", 4, 2048, 8, 4, 256, 0, bf16, True),
+             case("serve_window_f32", 4, 2048, 8, 4, 256, 1024, f32, False),
+             case("serve_global_f32", 4, 2048, 8, 4, 256, 0, f32, False),
+             case("ragged_S2000_window_bf16", 4, 2000, 8, 4, 256, 1024, bf16,
+                  False),
+             case("gqa_16to1_h128_bf16", 4, 2048, 16, 1, 128, 0, bf16, False),
+             case(MOE_K4_CASE, 4, 2048, 16, 16, 128, 0, bf16, True),
+             case(HYBRID_K4_CASE, 4, HYBRID_PROMPT, 10, 1, 256, 2048, bf16,
+                  True),
+             case("encdec_encoder_bf16", 4, Ep, 20, 20, 64, 0, bf16, True,
+                  Sk=E, pad=Ep),
+             case("encdec_cross_bf16", 4, ENCDEC_PROMPT, 20, 20, 64, 0, bf16,
+                  True, Sk=E, pad=Ep),
+             case("encdec_self_bf16", 4, ENCDEC_PROMPT, 20, 20, 64, 0, bf16,
+                  True),
+             case("encdec_cross_f32", 4, ENCDEC_PROMPT, 20, 20, 64, 0, f32,
+                  False, Sk=E, pad=Ep),
+             case("vlm_self_bf16", 4, 2048, 32, 8, 128, 0, bf16, True),
+             case("vlm_cross_bf16", 4, 2048, 32, 8, 128, 0, bf16, True, Sk=T,
+                  pad=-(-T // 16) * 16)]
     timed = {}
-    for name, B, S, N, K, h, window, dtype, time_it in cases:
-        q = torch.randn((B, S, N, h), generator=gen, device="cuda").to(dtype)
-        k, v = (torch.randn((B, S, K, h), generator=gen, device="cuda").to(dtype)
-                for _ in range(2))
+    for c in cases:
+        name, B, Sq, Sk, Sp = c["name"], c["B"], c["Sq"], c["Sk"], c["Sp"]
+        N, K, h, window = c["N"], c["K"], c["h"], c["window"]
+        causal, dtype = c["causal"], c["dtype"]
+        q = torch.randn((B, Sq, N, h), generator=gen, device="cuda").to(dtype)
+        k_pad, v_pad = (torch.randn((B, Sp, K, h), generator=gen,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+        k, v = k_pad[:, :Sk], v_pad[:, :Sk]
         before = dict(gqa_flash.launches_by_route)
-        out = gqa_flash(q, k, v, window=window)
-        ref = plain(q.float(), k.float(), v.float(), window)
+        out = gqa_flash(q, k, v, causal=causal, window=window)
+        ref = plain(q.float(), k.float(), v.float(), window, causal)
         torch.cuda.synchronize()
         (route,) = [r for r, n in gqa_flash.launches_by_route.items()
                     if n != before[r]]
         diff = (out.float() - ref).abs()
+        padded = (k_pad, v_pad) if Sp > Sk else (None, None)
+        faults = {}
         if dtype == bf16:
             elem, row = attention_gaps(out, ref)
             ok = elem <= BF16_ATOL and row <= BF16_ROW_REL
             limit = dict(against="plain attention in float32", atol=BF16_ATOL,
                          rtol=BF16_RTOL, row_rel=BF16_ROW_REL,
                          atol_needed=elem, max_row_rel_err=row)
-            bf16_ref = plain(q, k, v, window).float()
-            faults = {}
-            for fault, bad in planted_faults(q, k, v, out, window).items():
+            bf16_ref = plain(q, k, v, window, causal).float()
+            for fault, bad in planted_faults(q, k, v, out, window, causal,
+                                             *padded).items():
                 bad_elem, bad_row = attention_gaps(bad, ref)
                 bad_diff = (bad.float() - bf16_ref).abs()
                 faults[fault] = dict(
@@ -651,25 +756,36 @@ def flash_attention_vs_plain(gen):
                         (bad_diff <= 3e-2 + 3e-2 * bf16_ref.abs()).all()))
                 del bad, bad_diff
             del bf16_ref
-            limit["planted_faults"] = faults
         else:
             ok = bool((diff <= F32_TOL + F32_TOL * ref.abs()).all())
             limit = dict(against="plain attention", atol=F32_TOL,
                          rtol=F32_TOL)
+            if Sk != Sq:
+                for fault, bad in planted_faults(q, k, v, out, window, causal,
+                                                 *padded).items():
+                    bad_diff = (bad - ref).abs()
+                    faults[fault] = dict(
+                        max_abs_err=float(bad_diff.max()),
+                        rejected=not bool((bad_diff <= F32_TOL + F32_TOL
+                                           * ref.abs()).all()))
+                    del bad, bad_diff
+        if faults:
+            limit["planted_faults"] = faults
         size = q.element_size()
-        pairs = B * N * attention_pairs(S, window)
-        bnd, by = bound_ms(size * (2 * B * S * N * h + 2 * B * S * K * h),
+        pairs = B * N * attention_pairs(Sq, window, causal, Sk)
+        bnd, by = bound_ms(size * (2 * B * Sq * N * h + 2 * B * Sk * K * h),
                            4 * h * pairs,
                            BF16_FLOP_PER_S if dtype == bf16 else FP32_FLOP_PER_S)
-        rec = dict(kernel="flash_attention", case=name, B=B, S=S, N=N, K=K,
-                   h=h, window=window, dtype=str(dtype).replace("torch.", ""),
+        rec = dict(kernel="flash_attention", case=name, B=B, S=Sq, Sk=Sk,
+                   key_buffer_rows=Sp, N=N, K=K, h=h, window=window,
+                   causal=causal, dtype=str(dtype).replace("torch.", ""),
                    kernel_route=route, **limit,
                    max_abs_err=float(diff.max()),
                    within_tol=ok, finite=bool(torch.isfinite(out).all()),
                    pairs=pairs, bound_ms=bnd, bound_by=by)
-        if time_it:
+        if c["timed"]:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            pos = torch.arange(S, device="cuda")
+            pos = torch.arange(Sq, device="cuda")
             band = ((pos[:, None] >= pos[None, :])
                     & (pos[:, None] - pos[None, :] < window))
 
@@ -678,23 +794,24 @@ def flash_attention_vs_plain(gen):
                     return F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=band, enable_gqa=True)
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
 
             simt_out = torch.empty_like(q)
 
             def simt():
-                rc = kernel.launch(q, k, v, simt_out, causal=True,
+                rc = kernel.launch(q, k, v, simt_out, causal=causal,
                                    window=window, route="simt")
                 if rc != 0:
                     raise RuntimeError(f"simt flash_attention: CUDA error {rc}")
 
-            ms = median_ms(lambda: gqa_flash(q, k, v, window=window),
+            ms = median_ms(lambda: gqa_flash(q, k, v, causal=causal,
+                                             window=window),
                            reps=11, inner=10)
             rec.update(
                 ms=ms, tflop_per_s=4 * h * pairs / ms / 1e9,
                 share_of_bound=bnd / ms,
-                plain_ms=median_ms(lambda: plain(q, k, v, window), reps=5,
-                                   inner=5),
+                plain_ms=median_ms(lambda: plain(q, k, v, window, causal),
+                                   reps=5, inner=5),
                 simt_ms=median_ms(simt, reps=3, inner=3),
                 simt_max_abs_err=float((simt_out.float() - ref.float())
                                        .abs().max()),
@@ -707,18 +824,25 @@ def flash_attention_vs_plain(gen):
         want = "wgmma" if dtype == bf16 else "simt"
         if not (ok and rec["finite"] and route == want):
             raise AssertionError(f"flash_attention disagrees: {rec}")
-        if dtype == bf16 and not all(f["rejected"]
-                                     for f in limit["planted_faults"].values()):
-            raise AssertionError(f"flash_attention's bf16 limit lets a planted "
+        if not all(f["rejected"] for f in faults.values()):
+            raise AssertionError(f"flash_attention's limit lets a planted "
                                  f"fault pass: {rec}")
+        if (dtype == bf16 or Sk != Sq) and len(faults) != 2 + (Sp > Sk):
+            raise AssertionError(f"flash_attention: planted faults missing: "
+                                 f"{rec}")
     moe_rec = timed.pop(MOE_K4_CASE)
     hybrid_rec = timed.pop(HYBRID_K4_CASE)
+    parts = {family: {} for family in ("encdec", "vlm")}
+    for name, (family, part) in ENCDEC_VLM_K4_CASES.items():
+        parts[family][part] = timed.pop(name)
     by_window = {t["window"]: t for t in timed.values()}
     layers = sum(LAYER_MIX.values())
     mix = {key: sum(n * by_window[w][key] for w, n in LAYER_MIX.items())
            / layers
            for key in ("ms", "plain_ms", "simt_ms", "library_ms", "bound_ms")}
     (bound_by,) = {t["bound_by"] for t in timed.values()}
+    keys = ("ms", "plain_ms", "simt_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "share_of_bound", "ms_over_library_ms")
     rec = dict(kernel="flash_attention", case="serve_prefill_mix",
                kernel_route="wgmma",
                per="launch, averaged over one prefill's layers",
@@ -728,22 +852,30 @@ def flash_attention_vs_plain(gen):
                per_prefill_simt_ms=mix["simt_ms"] * layers,
                per_prefill_library_ms=mix["library_ms"] * layers,
                per_prefill_bound_ms=mix["bound_ms"] * layers,
-               moe={key: moe_rec[key] for key in (
-                   "ms", "plain_ms", "simt_ms", "library_ms", "bound_ms",
-                   "bound_by", "max_abs_err", "share_of_bound",
-                   "ms_over_library_ms")})
+               moe={key: moe_rec[key] for key in keys})
     rec["moe"].update(
         layers=MOE_LAYERS, per_prefill_ms=moe_rec["ms"] * MOE_LAYERS,
         per_prefill_library_ms=moe_rec["library_ms"] * MOE_LAYERS,
         per_prefill_bound_ms=moe_rec["bound_ms"] * MOE_LAYERS)
-    rec["hybrid"] = {key: hybrid_rec[key] for key in (
-        "ms", "plain_ms", "simt_ms", "library_ms", "bound_ms", "bound_by",
-        "max_abs_err", "share_of_bound", "ms_over_library_ms")}
+    rec["hybrid"] = {key: hybrid_rec[key] for key in keys}
     rec["hybrid"].update(
         layers=HYBRID_ATTN_LAYERS,
         per_prefill_ms=hybrid_rec["ms"] * HYBRID_ATTN_LAYERS,
         per_prefill_library_ms=hybrid_rec["library_ms"] * HYBRID_ATTN_LAYERS,
         per_prefill_bound_ms=hybrid_rec["bound_ms"] * HYBRID_ATTN_LAYERS)
+    # launches per prefill of each part: whisper's three per decoder layer
+    # (32 encoder layers, 32 decoder layers), the vision model's self and
+    # cross layers
+    counts = {"encdec": dict.fromkeys(("encoder", "cross", "self"),
+                                      ENCDEC_LAYERS),
+              "vlm": {"self": VLM_SELF_LAYERS, "cross": VLM_CROSS_LAYERS}}
+    for family, by_part in parts.items():
+        rec[family] = {part: {key: r[key] for key in keys}
+                       for part, r in by_part.items()}
+        for key in ("ms", "library_ms", "bound_ms", "plain_ms"):
+            rec[family][f"per_prefill_{key}"] = sum(
+                counts[family][part] * r[key] for part, r in by_part.items())
+        rec[family]["launches_per_prefill"] = sum(counts[family].values())
     emit(phase="kernels_vs_plain", **rec)
     return rec
 
@@ -964,27 +1096,75 @@ def greedy_steps(bundle, params, batch, cache_len: int, new_tokens: int):
 
 
 def attention_layers(cfg) -> int:
-    """The layers of ``cfg`` that attend: one flash_attention launch each
-    per prefill."""
+    """The flash_attention launches of one prefill of ``cfg``: one per
+    layer that attends; for the encoder-decoder one per encoder layer and
+    two per decoder layer (its self- and cross-attention)."""
     from repro_torch.models import rglru
 
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return rglru._pattern(cfg)[0]
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
     return cfg.num_layers
 
 
-def drive_serve(phase, arch, k4_ms_per_prefill, prompt=SERVE_PROMPT):
+def modality_draws(cfg, batch: int, seed: int):
+    """The modality stubs of ``cfg``'s batch (`factory._modality_extra`:
+    whisper's frame embeddings, the vision model's patch embeddings) drawn
+    standard normal in float32 on the card from ``seed``, so that the
+    encoder's and the cross-attention's weights are not uniform; none for
+    the other families."""
+    from repro_torch.models.factory import _modality_extra
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {name: torch.randn((batch, *shape), generator=gen, device="cuda")
+            for name, shape in _modality_extra(cfg).items()}
+
+
+def scale_to_full_depth(params, defs, full_defs):
+    """The params of a depth cut (``defs``) rescaled in place to the full
+    model's init (``full_defs``): each stacked "normal" leaf times
+    sqrt(L_cut / L_full), the first layers of the full model's draw in
+    distribution. The init rule's fan-in is a stack's length, so a 2-layer
+    stack drawn on its own has std 1/sqrt(2), where these families' scores
+    reach the thousands and a softmax's near-ties make float32 chaotic
+    (PERF.md §6, the encoder-decoder and vision findings)."""
+    for key, d in defs.items():
+        if isinstance(d, dict):
+            scale_to_full_depth(params[key], d, full_defs[key])
+        elif d.init == "normal" and d.shape and \
+                d.shape[0] != full_defs[key].shape[0]:
+            params[key].mul_(float(np.sqrt(d.shape[0]
+                                           / full_defs[key].shape[0])))
+
+
+def draw_zero_leaves(params, defs, gen, scale=0.5):
+    """Every leaf whose init is "zeros" (biases, the vision model's tanh
+    gates, RMS-norm and q/k-norm scales) overwritten in place by
+    ``scale``·normal draws from ``gen``, so that none is 0: with the
+    config's zero gates tanh(0) = 0 switches the image path off."""
+    for key, d in defs.items():
+        if isinstance(d, dict):
+            draw_zero_leaves(params[key], d, gen, scale)
+        elif d.init == "zeros":
+            x = params[key]
+            x.copy_(scale * torch.randn(x.shape, generator=gen,
+                                        device=x.device))
+
+
+def drive_serve(phase, arch, k4_ms_per_prefill, prompt=SERVE_PROMPT,
+                inputs=None):
     """The serve path at full width through `launch.serve.run` (the CLI's
     function: build_model, init_from_defs, prompts from prng.randint,
-    generate), batch 4, ``prompt`` tokens, 16 new tokens: one
-    flash_attention launch per attention layer at prefill
-    (`attention_layers`; none for an SSM), each on the tensor-core route,
-    none in decode, no other kernel. Then the same session stepped by
-    hand, synchronised after the prefill and after the decodes, for the
-    split of the time, and three warm prefills. Returns (config, launch
-    counts of `generate`)."""
+    generate), batch 4, ``prompt`` tokens, 16 new tokens, the modality
+    stubs ``inputs`` beside them: flash_attention launches at prefill as
+    `attention_layers` counts them (none for an SSM), each on the
+    tensor-core route, none in decode, no other kernel. Then the same
+    session stepped by hand, synchronised after the prefill and after the
+    decodes, for the split of the time, and three warm prefills. Returns
+    (config, launch counts of `generate`)."""
     from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.launch.serve import run
     from repro_torch.serve.loop import ServeSession
@@ -994,7 +1174,7 @@ def drive_serve(phase, arch, k4_ms_per_prefill, prompt=SERVE_PROMPT):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     res = run(arch, batch=SERVE_BATCH, prompt_len=prompt,
-              new_tokens=SERVE_NEW, device="cuda")
+              new_tokens=SERVE_NEW, device="cuda", inputs=inputs)
     counts = read_counts()
     routes = dict(gqa_flash.launches_by_route)
     cfg, bundle, params = res["cfg"], res["bundle"], res["params"]
@@ -1007,7 +1187,7 @@ def drive_serve(phase, arch, k4_ms_per_prefill, prompt=SERVE_PROMPT):
         raise AssertionError(f"{phase} flash_attention routes {routes}")
 
     cache_len = prompt + SERVE_NEW
-    batch = {"tokens": res["prompts"]}
+    batch = res["batch"]
     sess = ServeSession(bundle, params, cache_len)
     torch.cuda.synchronize()
     reset_counts()
@@ -1043,7 +1223,8 @@ def drive_serve(phase, arch, k4_ms_per_prefill, prompt=SERVE_PROMPT):
         repeats.append((time.perf_counter() - t0,
                         start.elapsed_time(stop) / 1e3))
     rec = dict(phase=phase, arch=cfg.name, layers=cfg.num_layers,
-               attention_layers=n_attn,
+               encoder_layers=cfg.encoder_layers, attention_layers=n_attn,
+               inputs={k: list(v.shape) for k, v in batch.items()},
                d_model=cfg.d_model, vocab=cfg.vocab_size, batch=SERVE_BATCH,
                prompt=prompt, new_tokens=SERVE_NEW, cache_len=cache_len,
                dtype=cfg.dtype, param_dtype=cfg.param_dtype,
@@ -1191,11 +1372,15 @@ def route_flips(got, want):
 
 
 def prefill_kernel_vs_plain(phase, cfg, seed, against="plain",
-                            prompt=SERVE_PROMPT):
-    """``cfg`` (full width, 2 or 3 layers) in bf16, batch 1, ``prompt``
-    tokens: the prefill logits with attention through the tensor-core
-    kernel against the same prefill, same weights, with the plain
-    attention on the card:
+                            prompt=SERVE_PROMPT, zeros_drawn=False,
+                            full_cfg=None):
+    """``cfg`` (full width, a few layers) in bf16, batch 1, ``prompt``
+    tokens (and the modality stubs, `modality_draws`): the prefill logits
+    with attention through the tensor-core kernel against the same
+    prefill, same weights (with ``zeros_drawn``, every zero-initialised
+    leaf drawn: `draw_zero_leaves`; with ``full_cfg``, the weights drawn
+    as the first layers of that full-depth model's, `scale_to_full_depth`),
+    with the plain attention on the card:
     ``against="plain"``, `ref.attention_ref` on the bf16 q, k, v (the JAX
     package's oracle, which rounds the scores to bf16); ``"float32"``, the
     same plain attention on q, k, v cast to float32, output rounded to bf16
@@ -1205,6 +1390,16 @@ def prefill_kernel_vs_plain(phase, cfg, seed, against="plain",
     plain attention is, and so must the first attention layer's output
     (within 2e-2 of the float32 attention's; all three prefills give it
     the same inputs). All three prefills run, and every gap is recorded.
+
+    With ``full_cfg`` (the encoder-decoder and vision families) every
+    kernel call of the prefill is held against the float32 attention of
+    its own inputs instead, within 2e-2, and the logits only to be nearer
+    to the float32 attention's than the bf16 plain attention's are: their
+    self-attention has no QK-norm, its scores reach the hundreds, and the
+    bf16 roundings of the residual stream alone move their logits by
+    several percent. A control prefill records that: the float32
+    attention with its output scaled by 1 + CONTROL_EPS (1e-3, the size of
+    the kernel's own per-call gap) before the bf16 rounding.
 
     Where the scores stay small (gemma3-4b: QK-norm) the kernel and the
     bf16 plain attention differ by bf16 roundings (max |dO| ~ 1.6e-2 at
@@ -1219,7 +1414,7 @@ def prefill_kernel_vs_plain(phase, cfg, seed, against="plain",
     from repro_torch import prng
     from repro_torch.kernels.flash_attention.ops import gqa_flash
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.models import transformer
+    from repro_torch.models import encdec, transformer, vlm
     from repro_torch.models.factory import build_model
     from repro_torch.models.transformer import _layer_flags
     from repro_torch.serve.loop import ServeSession
@@ -1234,12 +1429,12 @@ def prefill_kernel_vs_plain(phase, cfg, seed, against="plain",
 
     def f32_gqa(q, k, v, *, causal=True, window=0):
         # the largest scaled score q.k / sqrt(h) of the layer on or below
-        # the diagonal, in float32
+        # the diagonal (every one, not causal), in float32
         G = q.shape[2] // k.shape[2]
         scores = torch.einsum("bqnh,bknh->bnqk", q.float(),
-                              k.float().repeat_interleave(G, dim=2))
-        max_abs_score.append(float(scores.abs().tril().max())
-                             / q.shape[-1] ** 0.5)
+                              k.float().repeat_interleave(G, dim=2)).abs()
+        max_abs_score.append(float(scores.tril().max() if causal
+                                   else scores.max()) / q.shape[-1] ** 0.5)
         del scores
         return plain_gqa(q.float(), k.float(), v.float(), causal=causal,
                          window=window).to(q.dtype)
@@ -1251,23 +1446,39 @@ def prefill_kernel_vs_plain(phase, cfg, seed, against="plain",
         def attend(q, k, v, **kw):
             out = attention(q, k, v, **kw)
             first_out.setdefault(name, out.float())
+            if name == "kernel" and full_cfg is not None:
+                call_gaps.append(rel_gap(out.float(), plain_gqa(
+                    q.float(), k.float(), v.float(), **kw)))
             return out
 
-        transformer.gqa_flash = attend  # this one prefill only
+        for mod in (transformer, encdec, vlm):  # this one prefill only
+            mod.gqa_flash = attend
         try:
             return ServeSession(bundle, params, prompt).prefill(
                 batch).float()
         finally:
-            transformer.gqa_flash = gqa_flash
+            for mod in (transformer, encdec, vlm):
+                mod.gqa_flash = gqa_flash
+
+    def f32_scaled_gqa(q, k, v, **kw):
+        out = plain_gqa(q.float(), k.float(), v.float(), **kw)
+        return (out * (1 + CONTROL_EPS)).to(q.dtype)
 
     def rel_gap(a, b):
         return float((a - b).norm() / b.norm())
 
     bundle = build_model(cfg, "cuda")
-    params = init_from_defs(torch.Generator(device="cuda").manual_seed(seed),
-                            bundle.param_defs)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_from_defs(gen, bundle.param_defs)
+    if full_cfg is not None:
+        scale_to_full_depth(params, bundle.param_defs,
+                            build_model(full_cfg, "cuda").param_defs)
+    if zeros_drawn:
+        draw_zero_leaves(params, bundle.param_defs, gen)
+    call_gaps = []
     batch = {"tokens": prng.randint(prng.PRNGKey(seed), (1, prompt), 0,
-                                    cfg.vocab_size)}
+                                    cfg.vocab_size),
+             **modality_draws(cfg, 1, seed)}
     first_out = {}
     before = dict(gqa_flash.launches_by_route)
     with recorded_routes() as kern_routes:
@@ -1279,11 +1490,15 @@ def prefill_kernel_vs_plain(phase, cfg, seed, against="plain",
     max_abs_score = []
     with recorded_routes() as f32_routes:
         f32 = prefill_with("float32", f32_gqa)
+    control = None
+    if full_cfg is not None:
+        control = rel_gap(prefill_with("control", f32_scaled_gqa), f32)
     torch.cuda.synchronize()
     ref = {"plain": plain, "float32": f32}[against]
     rel = rel_gap(kern, ref)
     rec = dict(phase=phase, arch=cfg.name,
-               layers=cfg.num_layers, windows=_layer_flags(cfg).tolist(),
+               layers=cfg.num_layers, encoder_layers=cfg.encoder_layers,
+               windows=_layer_flags(cfg).tolist(), zeros_drawn=zeros_drawn,
                batch=1, prompt=prompt, dtype=cfg.dtype, routes=routes,
                against=against, rel_tol=2e-2, rel_logit_gap=rel,
                rel_gap_kernel_vs_plain=rel_gap(kern, plain),
@@ -1294,6 +1509,9 @@ def prefill_kernel_vs_plain(phase, cfg, seed, against="plain",
                first_attention_rel_gap_plain_vs_f32=rel_gap(
                    first_out["plain"], first_out["float32"]),
                max_abs_score=max_abs_score,
+               kernel_call_rel_gaps_vs_f32=call_gaps,
+               control_eps=CONTROL_EPS,
+               rel_gap_control_vs_f32_attention=control,
                max_abs_logit_gap=float((kern - ref).abs().max()),
                max_abs_logit=float(ref.abs().max()),
                argmax_equal=bool(torch.equal(kern.argmax(-1), ref.argmax(-1))),
@@ -1315,10 +1533,20 @@ def prefill_kernel_vs_plain(phase, cfg, seed, against="plain",
         and rec["first_attention_rel_gap_kernel_vs_f32"] <= 2e-2
         and rec["first_attention_rel_gap_kernel_vs_f32"]
         <= rec["first_attention_rel_gap_plain_vs_f32"])
-    if not (rel <= 2e-2 and nearer and rec["finite"]
+    if full_cfg is None:
+        held = rel <= 2e-2
+    else:
+        held = (len(call_gaps) == attention_layers(cfg)
+                and max(call_gaps) <= 2e-2)
+    if not (held and nearer and rec["finite"]
             and routes == {"wgmma": attention_layers(cfg), "simt": 0}):
         raise AssertionError(f"bf16 prefill, kernel against {against}: "
                              f"{rec}")
+
+
+# the control prefill's relative change of each attention output
+# (`prefill_kernel_vs_plain`)
+CONTROL_EPS = 1e-3
 
 
 def phase_serve_bf16_vs_plain():
@@ -1379,7 +1607,8 @@ def forced_steps(bundle, params, batch, cache_len: int, toks):
     return logits, sess.cache
 
 
-def serve_card_vs_cpu(phase, cfg, seed, batch, prompt, new, anchor64=False):
+def serve_card_vs_cpu(phase, cfg, seed, batch, prompt, new, anchor64=False,
+                      zeros_drawn=False, full_cfg=None):
     """``cfg`` (full width, 2 or 3 layers) in float32, ``batch`` rows of
     ``prompt`` tokens, ``new`` new tokens, on the card and on the CPU from
     the same weights: prefill and decode logits within rtol 1e-3, atol 5e-4
@@ -1401,17 +1630,27 @@ def serve_card_vs_cpu(phase, cfg, seed, batch, prompt, new, anchor64=False):
     So that the size of float32's own error stands beside the gaps, the
     same steps also run on the CPU in float64 (float64 outside the
     model's own float32 points), fed the CPU's tokens, and each device's
-    distance to that run is recorded."""
+    distance to that run is recorded. The modality stubs are drawn
+    (`modality_draws`); with ``zeros_drawn`` so is every zero-initialised
+    leaf (`draw_zero_leaves`: biases, gates, norm scales); with
+    ``full_cfg`` the weights are drawn as the first layers of that
+    full-depth model's (`scale_to_full_depth`)."""
     from repro_torch import prng
     from repro_torch.models.factory import build_model
     from repro_torch.models.transformer import _layer_flags
     from repro_torch.sharding.rules import init_from_defs, tree_map
 
     on_card, on_cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
-    params = init_from_defs(torch.Generator(device="cuda").manual_seed(seed),
-                            on_card.param_defs)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_from_defs(gen, on_card.param_defs)
+    if full_cfg is not None:
+        scale_to_full_depth(params, on_card.param_defs,
+                            build_model(full_cfg, "cuda").param_defs)
+    if zeros_drawn:
+        draw_zero_leaves(params, on_card.param_defs, gen)
     prompts = {"tokens": prng.randint(prng.PRNGKey(seed), (batch, prompt),
-                                      0, cfg.vocab_size)}
+                                      0, cfg.vocab_size),
+               **modality_draws(cfg, batch, seed)}
     cache_len = prompt + new
     t0 = time.perf_counter()
     with recorded_routes() as card_routes:
@@ -1467,8 +1706,12 @@ def serve_card_vs_cpu(phase, cfg, seed, batch, prompt, new, anchor64=False):
             cache_gaps=cache)
         cache_ok = all(c["within_tol"] for c in cache.values())
     rec = dict(phase=phase, arch=cfg.name, layers=cfg.num_layers,
+               encoder_layers=cfg.encoder_layers,
                windows=_layer_flags(cfg).tolist(), batch=batch,
-               prompt=prompt, new_tokens=new,
+               prompt=prompt, new_tokens=new, zeros_drawn=zeros_drawn,
+               init_of=(full_cfg or cfg).name + (
+                   f" at {full_cfg.num_layers} layers" if full_cfg else ""),
+               inputs={k: list(v.shape) for k, v in prompts.items()},
                dtype=cfg.dtype, rtol=1e-3, atol=atol,
                max_abs_logit_gap=gaps, within_tol=close, **extra,
                rows_compared=rows, moe_layer_calls=len(card_routes),
@@ -1754,7 +1997,8 @@ TRAIN_SNAPSHOT_BATCHES_FUSED = 1
 def fused_train_phase(phase, cfg, **fields):
     """The training path of ``cfg`` (full width, its depth cut), float32
     params, bf16 activations, ``remat="full"``, batch 2, sequence 2048
-    (random weights from seed 0, `SyntheticLMDataset` seed 0): a snapshot
+    (random weights from seed 0, `SyntheticLMDataset` seed 0, the modality
+    stubs drawn from seed 0 beside them: `modality_draws`): a snapshot
     over one batch and one unfused step (the warm-up's lr 0), then 2 fused
     SVRG steps against 2 unfused ones, each from the same state: params
     allclose (rtol 1e-5, atol 1e-6), metrics equal, K1 launched once per
@@ -1778,6 +2022,11 @@ def fused_train_phase(phase, cfg, **fields):
                        svrg=SVRGConfig(
                            snapshot_batches=TRAIN_SNAPSHOT_BATCHES_FUSED))
     ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    extra = modality_draws(cfg, TRAIN_BATCH, 0)
+
+    def batch_at(i):
+        return device_batch({**ds.batch_at(i), **extra}, "cuda")
+
     state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
                              bundle, tcfg)
     begin, accum, fin = make_snapshot_fns(bundle, tcfg)
@@ -1786,17 +2035,17 @@ def fused_train_phase(phase, cfg, **fields):
     t0 = time.perf_counter()
     state = begin(state)
     for j in range(TRAIN_SNAPSHOT_BATCHES_FUSED):
-        state = accum(state, device_batch(ds.batch_at(j), "cuda"))
+        state = accum(state, batch_at(j))
     state = fin(state)
     torch.cuda.synchronize()
     snapshot_s = time.perf_counter() - t0
-    state, first = make_train_step(bundle, tcfg)(state, device_batch(
-        ds.batch_at(TRAIN_SNAPSHOT_BATCHES_FUSED), "cuda"))
+    state, first = make_train_step(bundle, tcfg)(
+        state, batch_at(TRAIN_SNAPSHOT_BATCHES_FUSED))
     snapshot_counts = read_counts()
     leaves = len(tree_leaves(state.params))
     state, compare, fused_counts = fused_vs_unfused(
         bundle, tcfg, state,
-        [ds.batch_at(TRAIN_SNAPSHOT_BATCHES_FUSED + 1 + i)
+        [batch_at(TRAIN_SNAPSHOT_BATCHES_FUSED + 1 + i)
          for i in range(TRAIN_FUSED_STEPS)])
     peak = torch.cuda.max_memory_allocated() / 1e9
     k1_ms, k1_bound, k1_by, torch_ms = k1_over_tree(tcfg, state)
@@ -1854,6 +2103,120 @@ def phase_train_recurrent():
         cfg = get_config(arch).with_overrides(num_layers=layers)
         out[cfg.family] = fused_train_phase("train_recurrent", cfg,
                                             family=cfg.family)
+    return out
+
+
+def phase_serve_encdec(report):
+    """whisper-large-v3 at full width and depth (32 encoder layers over
+    1500 frames padded to 1504, 32 decoder layers), prompt 448 (its
+    decoder context), its frame embeddings drawn from seed 0: 96
+    flash_attention launches per prefill, a third of them with a key
+    length of their own (the encoder's 1504 queries over 1500 frames)."""
+    from repro_torch.configs import get_config
+
+    release_memory()
+    cfg, counts = drive_serve(
+        "serve_encdec", ENCDEC_ARCH,
+        report["flash_attention"]["encdec"]["per_prefill_ms"],
+        prompt=ENCDEC_PROMPT,
+        inputs=modality_draws(get_config(ENCDEC_ARCH), SERVE_BATCH, 0))
+    if (cfg.encoder_layers, cfg.num_layers, counts["flash_attention"]) != \
+            (ENCDEC_LAYERS, ENCDEC_LAYERS, 3 * ENCDEC_LAYERS):
+        raise AssertionError(f"serve_encdec: {cfg.encoder_layers} + "
+                             f"{cfg.num_layers} layers, {counts}")
+    return counts
+
+
+def phase_serve_vlm(report):
+    """llama-3.2-vision-11b at full width and depth (8 groups [self, self,
+    self, cross, self]), prompt 2048, its 1601 patch embeddings drawn from
+    seed 0: 40 flash_attention launches per prefill (8 of them non-causal
+    over the image tokens). As the config draws them, the tanh gates are
+    0, so the image path adds nothing to the residual; its work is done
+    all the same."""
+    from repro_torch.configs import get_config
+
+    release_memory()
+    cfg, counts = drive_serve(
+        "serve_vlm", VLM_ARCH,
+        report["flash_attention"]["vlm"]["per_prefill_ms"],
+        inputs=modality_draws(get_config(VLM_ARCH), SERVE_BATCH, 0))
+    if (cfg.num_layers, counts["flash_attention"]) != \
+            (VLM_SELF_LAYERS + VLM_CROSS_LAYERS,) * 2:
+        raise AssertionError(f"serve_vlm: {cfg.num_layers} layers, {counts}")
+    return counts
+
+
+# the encoder-decoder and vision families at a cut depth: whisper-large-v3
+# at 2 encoder + 2 decoder layers, llama-3.2-vision-11b at one group (5
+# layers); (arch, overrides, prompt)
+ENCDEC_VLM_CUT = ((ENCDEC_ARCH, dict(encoder_layers=2, num_layers=2),
+                   ENCDEC_PROMPT),
+                  (VLM_ARCH, dict(num_layers=5), SERVE_PROMPT))
+
+
+def phase_serve_encdec_vlm_bf16_vs_plain():
+    """Both families at full width and the cut depth, bf16, batch 1, the
+    weights drawn as the first layers of the full model's
+    (`scale_to_full_depth`), every zero-initialised leaf drawn (the
+    vision model's gates non-zero: the image path on), against the plain
+    attention in float32, and every kernel call against the float32
+    attention of its own inputs (`prefill_kernel_vs_plain`): without
+    QK-norm in the self-attention their scores reach the hundreds, where
+    bf16's spacing is a unit or more."""
+    from repro_torch.configs import get_config
+
+    for seed, (arch, overrides, prompt) in enumerate(ENCDEC_VLM_CUT, 9):
+        release_memory()
+        full = get_config(arch)
+        prefill_kernel_vs_plain(
+            "serve_encdec_vlm_bf16_vs_plain", full.with_overrides(**overrides),
+            seed, against="float32", prompt=prompt, zeros_drawn=True,
+            full_cfg=full)
+
+
+def phase_serve_encdec_vlm_card_vs_cpu():
+    """Both families at full width and the cut depth in float32 (K4's
+    CUDA-core route: h 64 MHA with the key length of the encoder and the
+    cross-attention, h 128 GQA over the image tokens), batch 2, prompts 64
+    and 128, 4 new tokens, the weights drawn as the first layers of the
+    full model's (`scale_to_full_depth`), every zero-initialised leaf drawn
+    (biases, gates, norm scales): logits, greedy tokens and every cache
+    leaf (``k``, ``v``, ``xk``, ``xv``, whisper's padded frames included)
+    on the card against the CPU, rtol 1e-3, atol `RECURRENT_ATOL` (of the
+    leaf's scale for a cache), each device's distance to a float64 run
+    recorded beside, as for the recurrent families. Drawn at the 2-layer
+    stack's own std instead, float32 is chaotic here: near-tied softmax
+    rows at scores in the thousands (PERF.md §6, the encoder-decoder and vision findings)."""
+    from repro_torch.configs import get_config
+
+    for seed, (arch, overrides, _), prompt in zip((11, 12), ENCDEC_VLM_CUT,
+                                                  (64, 128)):
+        release_memory()
+        full = get_config(arch)
+        serve_card_vs_cpu(
+            "serve_encdec_vlm_card_vs_cpu",
+            full.with_overrides(dtype="float32", **overrides), seed, 2,
+            prompt, 4, anchor64=True, zeros_drawn=True, full_cfg=full)
+
+
+# the training shapes: whisper-large-v3 at full depth (32 + 32 layers,
+# 1.54 B params), llama-3.2-vision-11b at one group (5 layers, 2.1 B
+# params, half of them the two [128256, 4096] embeddings)
+TRAIN_ENCDEC_VLM = ((ENCDEC_ARCH, {}), (VLM_ARCH, dict(num_layers=5)))
+
+
+def phase_train_encdec_vlm():
+    """Both families' training paths (`fused_train_phase`); returns
+    {family: record}."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, overrides in TRAIN_ENCDEC_VLM:
+        cfg = get_config(arch).with_overrides(**overrides)
+        out[cfg.family] = fused_train_phase(
+            "train_encdec_vlm", cfg, family=cfg.family,
+            encoder_layers=cfg.encoder_layers)
     return out
 
 
@@ -2015,6 +2378,28 @@ def main() -> int:
     train_recurrent = phase_train_recurrent()
     emit(phase="train_recurrent_done", seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
+    encdec_counts = phase_serve_encdec(report)
+    emit(phase="serve_encdec_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    vlm_counts = phase_serve_vlm(report)
+    emit(phase="serve_vlm_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_serve_encdec_vlm_bf16_vs_plain()
+    emit(phase="serve_encdec_vlm_bf16_vs_plain_done",
+         seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_serve_encdec_vlm_card_vs_cpu()
+    emit(phase="serve_encdec_vlm_card_vs_cpu_done",
+         seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    train_encdec_vlm = phase_train_encdec_vlm()
+    emit(phase="train_encdec_vlm_done", seconds=time.perf_counter() - t0)
+
     replaces = {"svrg_update": "src/repro/kernels/svrg_update/kernel.py:23",
                 "logreg_grad": "src/repro/kernels/logreg_grad/kernel.py:31",
                 "sweep_epoch": "src/repro/kernels/sweep_epoch/kernel.py:92",
@@ -2056,7 +2441,7 @@ def main() -> int:
         moe_train_ms_per_fused_step=train_moe_rec["k1_ms_per_fused_step"],
         moe_train_bound_ms_per_fused_step=train_moe_rec[
             "k1_bound_ms_per_fused_step"])
-    for family, rec in train_recurrent.items():
+    for family, rec in {**train_recurrent, **train_encdec_vlm}.items():
         kernels[0].update({
             f"{family}_train_launches_per_fused_step":
                 rec["k1_launches_per_fused_step"],
@@ -2079,6 +2464,23 @@ def main() -> int:
         hybrid_library_ms=hybrid_k4["library_ms"],
         hybrid_bound_ms=hybrid_k4["bound_ms"],
         hybrid_max_abs_err=hybrid_k4["max_abs_err"])
+    # and on the whisper-large-v3 and llama-3.2-vision-11b serve paths:
+    # launches per prefill, and the time of each part at its shape (the
+    # whisper encoder's and both vision cases are the ones a key length of
+    # its own or GQA at h 128 made new)
+    k4 = report["flash_attention"]
+    kernels[3].update(
+        encdec_launches_per_prefill=encdec_counts["flash_attention"],
+        vlm_launches_per_prefill=vlm_counts["flash_attention"],
+        encdec_per_prefill_ms=k4["encdec"]["per_prefill_ms"],
+        vlm_per_prefill_ms=k4["vlm"]["per_prefill_ms"])
+    for family in ("encdec", "vlm"):
+        for part, rec in k4[family].items():
+            if isinstance(rec, dict):
+                kernels[3].update({
+                    f"{family}_{part}_{key}": rec[key] for key in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "max_abs_err")})
     emit(phase="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` resolution and reduced
 smoke configs, as in the JAX package's ``configs/registry.py``.
 
-The port registers the architectures its model factory builds (the four
-dense ones, the two mixture-of-experts ones, the hybrid recurrentgemma-2b,
-the SSM falcon-mamba-7b, and the paper's logistic regression), each module
-a field-for-field copy of the JAX package's.
+The port registers every architecture of the JAX package (the four dense
+ones, the two mixture-of-experts ones, the encoder-decoder
+whisper-large-v3, the vision-language llama-3.2-vision-11b, the hybrid
+recurrentgemma-2b, the SSM falcon-mamba-7b, and the paper's logistic
+regression), each module a field-for-field copy of the JAX package's.
 ``reduced_config`` shrinks one to a CPU-testable size of the same family
 without changing the code path exercised.
 """
@@ -26,8 +27,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
         chatglm3_6b, command_r_plus_104b, deepseek_moe_16b, falcon_mamba_7b,
-        gemma3_4b, paper_logreg, qwen3_moe_235b, recurrentgemma_2b,
-        stablelm_12b,
+        gemma3_4b, llama32_vision_11b, paper_logreg, qwen3_moe_235b,
+        recurrentgemma_2b, stablelm_12b, whisper_large_v3,
     )
 
 
@@ -44,8 +45,7 @@ def list_configs() -> List[str]:
 
 
 def reduced_config(name: str) -> ModelConfig:
-    """Same-family miniature for CPU tests (the JAX package's reduction for
-    the dense, moe, hybrid, ssm and logreg families)."""
+    """Same-family miniature for CPU tests (the JAX package's reduction)."""
     cfg = get_config(name)
     kw = dict(
         num_layers=min(cfg.num_layers, 4),
@@ -65,6 +65,11 @@ def reduced_config(name: str) -> ModelConfig:
                   num_shared_experts=cfg.num_shared_experts and 1,
                   first_dense_layers=min(1, cfg.first_dense_layers),
                   d_ff=0)
+    if cfg.family == "encdec":
+        kw.update(encoder_layers=2, encoder_seq=16, encoder_feature_dim=24)
+    if cfg.family == "vlm":
+        kw.update(num_layers=5, cross_attn_every=5, num_image_tokens=8,
+                  image_embed_dim=48)
     if cfg.family == "hybrid":
         kw.update(num_layers=5, lru_width=128, num_heads=4, local_window=8)
     if cfg.family == "ssm":

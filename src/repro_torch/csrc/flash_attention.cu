@@ -4,8 +4,11 @@
 //     o[b, s, n, :] = softmax_j(q[b, s, n, :] . k[b, j, n / G, :] / sqrt(h)
 //                               over the allowed j) @ v[b, j, n / G, :]
 //
-// with key j allowed for query s when j < S, (not causal or s >= j) and
-// (window == 0 or s - j < window); G = N / K query heads share a kv head.
+// for the Sq queries s and Sk keys j, with key j allowed for query s when
+// j < Sk, (not causal or s >= j) and (window == 0 or s - j < window); G =
+// N / K query heads share a kv head. A key length of its own (Sk != Sq) is
+// for non-causal attention without a window; the wrapper refuses it
+// otherwise.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (`_flash_kernel`, launched by `flash_attention`), which ran one
@@ -20,15 +23,17 @@
 // (989 TFLOP/s in bf16): wgmma, TMA and a pipeline are later work.
 //
 // Design:
-// * The model layout is read through strides: q [B, S, N, h], k/v
-//   [B, S, K, h], o [B, S, N, h]; kv head n / G serves query head n, so there
-//   is no repeat or transpose copy.
+// * The model layout is read through strides: q [B, Sq, N, h], k/v
+//   [B, Sk, K, h], o [B, Sq, N, h]; kv head n / G serves query head n, so
+//   there is no repeat or transpose copy. Keys padded at the end of a longer
+//   buffer are cut off by passing Sk, with the buffer's strides.
 // * One block of 256 threads per (b, n, tile of 64 query rows); the tiles
 //   that reach furthest along the sequence (most kv tiles under the causal
 //   mask) are numbered first. The block walks the kv tiles of 32 keys from
 //   the first one the window reaches to the last one the causal diagonal
 //   reaches, as the TPU kernel skips tiles. Inside a tile, and at the
-//   ragged end of the sequence, it masks key by key, so any S works.
+//   ragged end of either length, it masks key by key, so any Sq and Sk
+//   work.
 // * q, k and v tiles are widened to float32 in shared memory (rows padded
 //   by 4 floats against bank conflicts): (64 + 2 * 32) * (h + 4) * 4 bytes,
 //   133,120 at h = 256, plus the 64 x 32 probability tile. Above 48 KB the
@@ -67,7 +72,7 @@ struct Params {
   long long k_sb, k_ss, k_sn;
   long long v_sb, v_ss, v_sn;
   long long o_sb, o_ss, o_sn;
-  int B, S, N, K, h, nq, causal, window;
+  int B, Sq, Sk, N, K, h, nq, causal, window;
   float scale;
 };
 
@@ -178,18 +183,18 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
     for (int c = 0; c < NC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  load_tile<T>(sQ, q, p.q_ss, q0, kBQ, p.S, h, ld);
+  load_tile<T>(sQ, q, p.q_ss, q0, kBQ, p.Sq, h, ld);
 
   // kv tiles: from the first key the earliest row's window reaches to the
   // last key the latest row's causal diagonal reaches
-  const int q_last = min(q0 + kBQ, p.S) - 1;
+  const int q_last = min(q0 + kBQ, p.Sq) - 1;
   const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) / kBK * kBK : 0;
-  const int k_end = p.causal ? q_last + 1 : p.S;
+  const int k_end = p.causal ? q_last + 1 : p.Sk;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's sK, sV and sP are consumed
-    load_tile<T>(sK, k, p.k_ss, k0, kBK, p.S, h, ld);
-    load_tile<T>(sV, v, p.v_ss, k0, kBK, p.S, h, ld);
+    load_tile<T>(sK, k, p.k_ss, k0, kBK, p.Sk, h, ld);
+    load_tile<T>(sV, v, p.v_ss, k0, kBK, p.Sk, h, ld);
     __syncthreads();
 
     // scores of rows r0 .. r0 + 3 against keys tx and tx + 16
@@ -225,7 +230,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < p.S && (!p.causal || qpos >= kpos) &&
+        ok[j] = kpos < p.Sk && (!p.causal || qpos >= kpos) &&
                 (p.window <= 0 || qpos - kpos < p.window);
         s[i][j] = ok[j] ? s[i][j] * p.scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -280,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + r0 + i;
-    if (row >= p.S) continue;
+    if (row >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -328,18 +333,20 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k, c
                                       long long k_sb, long long k_ss, long long k_sn,
                                       long long v_sb, long long v_ss, long long v_sn,
                                       long long o_sb, long long o_ss, long long o_sn, int B,
-                                      int S, int N, int K, int h, int causal, int window,
-                                      float scale, void* stream) {
+                                      int Sq, int Sk, int N, int K, int h, int causal,
+                                      int window, float scale, void* stream) {
   if (h <= 0 || h > 256 || h % 8 != 0 || K <= 0 || N % K != 0) return (int)cudaErrorInvalidValue;
-  if (B <= 0 || S <= 0 || N <= 0) return 0;
+  if (Sk != Sq && (causal || window)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || N <= 0) return 0;
+  if (Sk <= 0) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sn = q_sn;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sn = k_sn;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sn = v_sn;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sn = o_sn;
-  p.B = B; p.S = S; p.N = N; p.K = K; p.h = h;
-  p.nq = (S + kBQ - 1) / kBQ;
+  p.B = B; p.Sq = Sq; p.Sk = Sk; p.N = N; p.K = K; p.h = h;
+  p.nq = (Sq + kBQ - 1) / kBQ;
   p.causal = causal; p.window = window; p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_width<float>(p, s);

@@ -4,8 +4,11 @@
 //     o[b, s, n, :] = softmax_j(q[b, s, n, :] . k[b, j, n / G, :] / sqrt(h)
 //                               over the allowed j) @ v[b, j, n / G, :]
 //
-// with key j allowed for query s when j < S, (not causal or s >= j) and
-// (window == 0 or s - j < window); G = N / K query heads share a kv head.
+// for the Sq queries s and Sk keys j, with key j allowed for query s when
+// j < Sk, (not causal or s >= j) and (window == 0 or s - j < window); G =
+// N / K query heads share a kv head. A key length of its own (Sk != Sq) is
+// for non-causal attention without a window (an encoder over its valid
+// frames, a cross-attention); the wrapper refuses it otherwise.
 // The same function as flash_attention.cu (the CUDA-core kernel, which
 // keeps float32 and the bf16 head widths that are not a multiple of 16).
 //
@@ -27,9 +30,11 @@
 //   first. The block walks the kv tiles from the first one the window
 //   reaches to the last one the causal diagonal reaches.
 // * Loads are TMA copies of 4-D tensor maps over the model layout, dims
-//   (h, heads, S, B) with the caller's element strides, so q [B, S, N, h]
-//   and k/v [B, S, K, h] are read in place (kv head n / G, no repeat) and
-//   rows at or past S, and columns at or past h, arrive as zeros. A row of
+//   (h, heads, S, B) with the caller's element strides, so q [B, Sq, N, h]
+//   and k/v [B, Sk, K, h] are read in place (kv head n / G, no repeat) and
+//   rows at or past Sq (q) or Sk (k, v), and columns at or past h, arrive
+//   as zeros: keys padded at the end of a longer buffer are cut off by
+//   passing Sk, with the buffer's strides. A row of
 //   h is cut into boxes of 64 bf16 (128 bytes, the widest box the 128-byte
 //   swizzle takes); h is padded to HP, a multiple of 64.
 // * Q is loaded once per block. K and V tiles of BK keys go through a ring
@@ -45,7 +50,7 @@
 //   four threads of a quad, so a row max is two shuffles; the row sum stays
 //   per thread until the end. The mask is applied element by element only
 //   on the tiles that cut the causal diagonal or the window's edge, or
-//   hold keys past S (zero-filled, so their score is 0, not -inf). A
+//   hold keys past Sk (zero-filled, so their score is 0, not -inf). A
 //   masked entry gets the score -inf, so its weight exp2(-inf - m) is
 //   exactly 0 (m is finite: it starts at -1e30), and a row with every key
 //   of a tile masked keeps m, l and acc; the output is acc / max(l, 1e-30).
@@ -55,7 +60,7 @@
 //   shared memory in its key-major layout with the transpose bit (MN-major).
 //   No round trip of P through shared memory.
 // * Epilogue: acc / l rounded to bf16 into the (free) Q buffer with the
-//   same swizzle, then 16-byte coalesced stores of the rows below S.
+//   same swizzle, then 16-byte coalesced stores of the rows below Sq.
 // * Shared memory: Q 64 x HP, 2 stages of K and V BK x HP, all bf16. At
 //   h = 256 BK = 32: 96 KB + alignment, two blocks per SM, whose softmax
 //   and wgmma interleave; at h <= 128 BK = 64.
@@ -84,7 +89,7 @@ struct Cfg {
 struct Params {
   void* o;
   long long o_sb, o_ss, o_sn;
-  int S, N, K, h, BN, nq, causal, window;
+  int Sq, Sk, N, K, h, BN, nq, causal, window;
   float scale_log2;  // log2(e) / sqrt(h)
 };
 
@@ -268,9 +273,9 @@ __global__ void __launch_bounds__(kThreads) flash_wgmma_kernel(
 
   // kv tiles: from the first key the earliest row's window reaches to the
   // last key the latest row's causal diagonal reaches
-  const int q_last = min(q0 + kBQ, p.S) - 1;
+  const int q_last = min(q0 + kBQ, p.Sq) - 1;
   const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BK * BK : 0;
-  const int k_end = p.causal ? q_last + 1 : p.S;
+  const int k_end = p.causal ? q_last + 1 : p.Sk;
   const int nt = (k_end - k_begin + BK - 1) / BK;
 
   auto load_kv = [&](int j) {  // thread 0 only
@@ -340,7 +345,7 @@ __global__ void __launch_bounds__(kThreads) flash_wgmma_kernel(
     fence_regs(sc);
 
     // online softmax; sc[4 g + e] is row row0 + 8 (e / 2), key 8 g + col0 + e % 2
-    const bool masked = k0 + BK > p.S || (p.causal && k0 + BK - 1 > q0) ||
+    const bool masked = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0) ||
                         (p.window > 0 && q0 + kBQ - 1 - k0 >= p.window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -351,7 +356,7 @@ __global__ void __launch_bounds__(kThreads) flash_wgmma_kernel(
         if (masked) {
           const int qpos = q0 + row0 + 8 * (e >> 1);
           const int kpos = k0 + 8 * g + col0 + (e & 1);
-          const bool ok = kpos < p.S && (!p.causal || qpos >= kpos) &&
+          const bool ok = kpos < p.Sk && (!p.causal || qpos >= kpos) &&
                           (p.window <= 0 || qpos - kpos < p.window);
           x = ok ? x : kNegInf;
         }
@@ -409,7 +414,7 @@ __global__ void __launch_bounds__(kThreads) flash_wgmma_kernel(
     }
   }
 
-  // epilogue: acc / l in bf16 into the Q buffer (same swizzle), then rows < S out
+  // epilogue: acc / l in bf16 into the Q buffer (same swizzle), then rows < Sq out
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -438,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) flash_wgmma_kernel(
   for (int i = tid; i < kBQ * per_row; i += kThreads) {
     const int row = i / per_row;
     const int piece = i - row * per_row;
-    if (q0 + row >= p.S) break;
+    if (q0 + row >= p.Sq) break;
     const uint4 val = *reinterpret_cast<const uint4*>(
         smem + (piece >> 3) * kBQ * 128 + row * 128 + (((piece & 7) ^ (row & 7)) << 4));
     *reinterpret_cast<uint4*>(o + (long long)(q0 + row) * p.o_ss + piece * 8) = val;
@@ -495,9 +500,9 @@ int launch(const void* q, const void* k, const void* v, long long q_sb, long lon
   EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, encode, q, p.h, p.N, p.S, B, q_sb, q_ss, q_sn, kBQ);
-  if (rc == 0) rc = make_map(&tk, encode, k, p.h, p.K, p.S, B, k_sb, k_ss, k_sn, C::BK);
-  if (rc == 0) rc = make_map(&tv, encode, v, p.h, p.K, p.S, B, v_sb, v_ss, v_sn, C::BK);
+  int rc = make_map(&tq, encode, q, p.h, p.N, p.Sq, B, q_sb, q_ss, q_sn, kBQ);
+  if (rc == 0) rc = make_map(&tk, encode, k, p.h, p.K, p.Sk, B, k_sb, k_ss, k_sn, C::BK);
+  if (rc == 0) rc = make_map(&tv, encode, v, p.h, p.K, p.Sk, B, v_sb, v_ss, v_sn, C::BK);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<HP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
@@ -509,7 +514,7 @@ int launch(const void* q, const void* k, const void* v, long long q_sb, long lon
 
 }  // namespace
 
-// bf16 q [B, S, N, h], k/v [B, S, K, h], o [B, S, N, h]; h a multiple of 16
+// bf16 q [B, Sq, N, h], k/v [B, Sk, K, h], o [B, Sq, N, h]; h a multiple of 16
 // up to 256. Strides are in elements, in the order (batch, sequence, head);
 // the head dimension is contiguous, rows and bases 16-byte aligned. Returns
 // the CUDA error code of the launch (0 on success).
@@ -518,15 +523,17 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
                                             long long k_sb, long long k_ss, long long k_sn,
                                             long long v_sb, long long v_ss, long long v_sn,
                                             long long o_sb, long long o_ss, long long o_sn,
-                                            int B, int S, int N, int K, int h, int causal,
-                                            int window, float scale, void* stream) {
+                                            int B, int Sq, int Sk, int N, int K, int h,
+                                            int causal, int window, float scale, void* stream) {
   if (h <= 0 || h > 256 || h % 16 != 0 || K <= 0 || N % K != 0) return (int)cudaErrorInvalidValue;
-  if (B <= 0 || S <= 0 || N <= 0) return 0;
+  if (Sk != Sq && (causal || window)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || N <= 0) return 0;
+  if (Sk <= 0) return (int)cudaErrorInvalidValue;
   Params p;
   p.o = o;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sn = o_sn;
-  p.S = S; p.N = N; p.K = K; p.h = h; p.BN = B * N;
-  p.nq = (S + kBQ - 1) / kBQ;
+  p.Sq = Sq; p.Sk = Sk; p.N = N; p.K = K; p.h = h; p.BN = B * N;
+  p.nq = (Sq + kBQ - 1) / kBQ;
   p.causal = causal; p.window = window;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -19,7 +19,7 @@ from repro_torch.kernels._build import library
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TENSOR_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+                + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
 
 
 @functools.cache
@@ -35,14 +35,15 @@ def _entry(route: str):
 
 
 def launch(q, k, v, out, *, causal: bool, window: int, route: str) -> int:
-    """out [B, S, N, h] = attention of q [B, S, N, h] over k, v [B, S, K, h],
-    by the kernel of ``route`` (``"wgmma"`` or ``"simt"``)."""
-    B, S, N, h = q.shape
-    K = k.shape[2]
+    """out [B, Sq, N, h] = attention of q [B, Sq, N, h] over k, v
+    [B, Sk, K, h], by the kernel of ``route`` (``"wgmma"`` or ``"simt"``)."""
+    B, Sq, N, h = q.shape
+    Sk, K = k.shape[1], k.shape[2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
-            B, S, N, K, h, int(causal), int(window), 1.0 / math.sqrt(h), stream)
+            B, Sq, Sk, N, K, h, int(causal), int(window), 1.0 / math.sqrt(h),
+            stream)
     if route == "wgmma":
         return _entry(route)(*args)
     return _entry(route)(DTYPE_CODES[q.dtype], *args)

@@ -1,8 +1,14 @@
 """Public flash-attention wrapper in the model layout: device dispatch,
 route choice, input checks, launch counts.
 
-`gqa_flash` takes q ``[B, S, N, h]`` and k, v ``[B, S, K, h]`` with N a
-multiple of K. For CPU tensors it repeats the kv heads and runs the plain
+`gqa_flash` takes q ``[B, Sq, N, h]`` and k, v ``[B, Sk, K, h]`` with N a
+multiple of K. Query i and key j sit at positions i and j. A key length
+of its own (``Sk != Sq``) is for non-causal attention without a window
+(an encoder over its valid frames, a cross-attention over an encoder's
+or an image's tokens); causal or windowed attention takes ``Sk == Sq``.
+A caller masks padded keys at the end of a buffer by passing the view
+``k[:, :S_valid]``: the kernels read the view's rows and no others. For
+CPU tensors it repeats the kv heads and runs the plain
 version (`ref.attention_ref`), as the JAX package's wrapper does. For CUDA
 tensors it launches one of two kernels, which read the model layout through
 strides (no repeat, no transpose), chosen by dtype and head width alone
@@ -61,13 +67,17 @@ def _check_kernel_inputs(q, k, v) -> None:
 
 
 def gqa_flash(q, k, v, *, causal: bool = True, window: int = 0):
-    """q [B,S,N,h], k/v [B,S,K,h] -> [B,S,N,h] in q's dtype."""
-    B, S, N, h = q.shape
-    K = k.shape[2]
-    if k.shape != (B, S, K, h) or v.shape != k.shape or N % K:
+    """q [B,Sq,N,h], k/v [B,Sk,K,h] -> [B,Sq,N,h] in q's dtype."""
+    B, Sq, N, h = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if k.shape != (B, Sk, K, h) or v.shape != k.shape or N % K:
         raise ValueError(f"gqa_flash: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}: expected k = v = [B, S, K, h] "
+                         f"v {tuple(v.shape)}: expected k = v = [B, Sk, K, h] "
                          "with K dividing N")
+    if Sk != Sq and (causal or window):
+        raise ValueError(f"gqa_flash: {Sq} queries over {Sk} keys is for "
+                         "non-causal attention without a window; causal or "
+                         "windowed attention takes as many keys as queries")
     if dispatch.route(q, k, v) == dispatch.REFERENCE:
         G = N // K
         qt = q.transpose(1, 2)                              # [B,N,S,h]
@@ -83,7 +93,7 @@ def gqa_flash(q, k, v, *, causal: bool = True, window: int = 0):
             "call this under torch.no_grad()")
     _check_kernel_inputs(q, k, v)
     chosen = route(q.dtype, h)
-    out = torch.empty((B, S, N, h), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, N, h), dtype=q.dtype, device=q.device)
     rc = kernel.launch(q, k, v, out, causal=causal, window=int(window),
                        route=chosen)
     if rc != 0:

@@ -15,6 +15,11 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch recurrentgemma-2b --reduced --steps 20
 
+  # the encoder-decoder and vision families too, with the modality stubs
+  # (float32 ones of the frame or patch embeddings) in every batch:
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch whisper-large-v3 --reduced --device cpu --steps 3
+
 The flags are the JAX package's plus ``--device``. The data is
 `SyntheticLMDataset` from ``--seed``; the params are drawn on the device
 from a generator seeded with ``--seed``. Prints the steps per second and
@@ -32,7 +37,7 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.config import SVRGConfig, TrainConfig
 from repro_torch.configs import get_config, list_configs, reduced_config
 from repro_torch.data.synthetic_lm import SyntheticLMDataset
-from repro_torch.launch.serve import device_name
+from repro_torch.launch.serve import device_name, modality_inputs
 from repro_torch.models.factory import build_model
 from repro_torch.train.loop import train
 from repro_torch.utils.misc import log
@@ -73,12 +78,17 @@ def main(argv=None) -> None:
     )
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
                             seed=args.seed)
+    extra = modality_inputs(cfg, args.batch, bundle.device)
+
+    def batch_at(step: int):
+        return {**ds.batch_at(step), **extra}
+
     log(f"training {cfg.name} ({cfg.family}) with {args.optimizer}, "
         f"{args.steps} steps on {device_name(bundle.device)}")
     done = Checkpointer(args.checkpoint_dir).list_steps()
     steps = args.steps - (done[-1] if done else 0)   # a resumed run's share
     t0 = time.perf_counter()
-    train(bundle, tcfg, ds.batch_at)
+    train(bundle, tcfg, batch_at)
     if bundle.device.type == "cuda":
         torch.cuda.synchronize(bundle.device)
     seconds = time.perf_counter() - t0

@@ -1,10 +1,10 @@
 """Model factory: ``ModelConfig.family`` -> the family module, bundled as
 uniform (loss_fn, prefill, decode_step, param_defs, cache_defs, make_inputs)
 functions for the train loop and the serve loop; the port of the JAX
-package's ``models/factory.py`` for the dense, moe, hybrid (``rglru``) and
-ssm (``mamba``) families and the paper's logistic regression (``logreg``:
-a loss and its inputs, no serve path). ``input_specs`` (the dry-run's
-shape-only batch) waits for ``launch/dryrun``.
+package's ``models/factory.py`` for every family: dense, moe, encdec, vlm,
+hybrid (``rglru``), ssm (``mamba``) and the paper's logistic regression
+(``logreg``: a loss and its inputs, no serve path). ``input_specs`` (the
+dry-run's shape-only batch) waits for ``launch/dryrun``.
 """
 from __future__ import annotations
 
@@ -19,14 +19,8 @@ from repro_torch.core.objective import default_device
 from repro_torch.sharding.rules import ParamDef
 from repro_torch.utils.tree import tree_map
 
-# families the JAX package builds that the port does not yet, with the
-# ROADMAP item that brings each
-_NOT_PORTED = {
-    "encdec": "ROADMAP Queue 1 item 4 (models/encdec.py)",
-    "vlm": "ROADMAP Queue 1 item 4 (models/vlm.py)",
-}
-_MODULES = {"dense": "transformer", "moe": "moe", "hybrid": "rglru",
-            "ssm": "mamba"}
+_MODULES = {"dense": "transformer", "moe": "moe", "encdec": "encdec",
+            "vlm": "vlm", "hybrid": "rglru", "ssm": "mamba"}
 
 
 @dataclass
@@ -42,13 +36,20 @@ class ModelBundle:
     make_inputs: Callable                # (batch, seq, gen) -> concrete batch
 
 
+def _modality_extra(cfg: ModelConfig) -> Dict:
+    """Stub frontend tensors the input pipeline supplies beside the tokens:
+    {name: shape after the batch dimension}."""
+    if cfg.family == "encdec":
+        return {"enc_feats": (cfg.encoder_seq, cfg.encoder_feature_dim)}
+    if cfg.family == "vlm":
+        return {"image_embeds": (cfg.num_image_tokens, cfg.image_embed_dim)}
+    return {}
+
+
 def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
     """The bundle of ``cfg`` on ``device`` (default: the card; raises where
     there is none rather than moving to the CPU)."""
     fam = cfg.family
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet: {_NOT_PORTED[fam]}")
     if fam not in _MODULES and fam != "logreg":
         raise ValueError(f"unknown family {fam!r}")
     device = default_device(device)
@@ -56,6 +57,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
         return _build_logreg(cfg, device)
     mod = importlib.import_module(f"repro_torch.models.{_MODULES[fam]}")
     act_dtype = getattr(torch, cfg.dtype)
+    extra = _modality_extra(cfg)
 
     def cast(params: Dict) -> Dict:
         """f32 master params -> activation-dtype compute copies. A leaf
@@ -72,18 +74,31 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
 
     def make_inputs(batch: int, seq: int, gen: torch.Generator):
         """A concrete LM batch on ``gen``'s device: tokens and targets drawn
-        in turn from ``gen`` in [0, vocab), mask ones (the JAX package's
-        ``_lm_inputs``, whose tokens and targets share one key)."""
+        in turn from ``gen`` in [0, vocab), mask ones, and the modality
+        stubs (`_modality_extra`) as float32 ones (the JAX package's
+        concrete ``_lm_inputs``, whose tokens and targets share one
+        key)."""
         shape = (batch, seq)
         tokens, targets = (torch.randint(0, cfg.vocab_size, shape,
                                          generator=gen, device=gen.device,
                                          dtype=torch.int32) for _ in range(2))
-        return {"tokens": tokens, "targets": targets,
-                "mask": torch.ones(shape, dtype=torch.float32,
-                                   device=gen.device)}
+        out = {"tokens": tokens, "targets": targets,
+               "mask": torch.ones(shape, dtype=torch.float32,
+                                  device=gen.device)}
+        for name, rest in extra.items():
+            out[name] = torch.ones((batch, *rest), dtype=torch.float32,
+                                   device=gen.device)
+        return out
 
     def prefill_fn(params, batch, cache_len):
-        return mod.prefill(cfg, cast(params), batch["tokens"], cache_len)
+        params = cast(params)
+        if fam == "encdec":
+            return mod.prefill(cfg, params, batch["enc_feats"],
+                               batch["tokens"], cache_len)
+        if fam == "vlm":
+            return mod.prefill(cfg, params, batch["tokens"],
+                               batch["image_embeds"], cache_len)
+        return mod.prefill(cfg, params, batch["tokens"], cache_len)
 
     def decode_fn(params, cache, tokens, pos):
         return mod.decode_step(cfg, cast(params), cache, tokens, pos)

@@ -140,17 +140,17 @@ def attention(q, k, v, pos_q, pos_k, *, causal: bool = True,
     return torch.cat(outs, dim=1).reshape(B, Q, N, h)
 
 
+def project(x, w, b=None):
+    """x [B,S,D] @ w [D,n,h] (+ b [n,h]) -> [B,S,n,h], contiguous."""
+    B, S, D = x.shape
+    y = x.reshape(B * S, D).matmul(w.reshape(D, -1)).view(B, S, *w.shape[1:])
+    return y if b is None else y + b
+
+
 def gqa_project(x, p: Dict, cfg: ModelConfig, use_bias: bool):
     """x [B,S,d] -> q [B,S,N,h], k/v [B,S,K,h], each contiguous."""
-    B, S, D = x.shape
-    xf = x.reshape(B * S, D)
-    q, k, v = (xf.matmul(p[w].reshape(D, -1)).view(B, S, *p[w].shape[1:])
-               for w in ("wq", "wk", "wv"))
-    if use_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    return q, k, v
+    return tuple(project(x, p[f"w{n}"], p[f"b{n}"] if use_bias else None)
+                 for n in "qkv")
 
 
 def attn_output(out, p: Dict, use_bias: bool):

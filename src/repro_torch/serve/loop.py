@@ -32,13 +32,14 @@ class ServeSession:
         self.pos = 0
 
     def prefill(self, batch):
-        tokens = batch["tokens"]
-        if not isinstance(tokens, torch.Tensor):
-            tokens = torch.tensor(np.asarray(tokens))
-        tokens = tokens.to(self.bundle.device)
+        """Prefill every input of ``batch`` (the tokens, and the modality
+        stubs of the encoder-decoder and vision families), each moved to
+        the bundle's device."""
+        batch = {name: _on_device(x, self.bundle.device)
+                 for name, x in batch.items()}
         logits, self.cache = self.bundle.prefill_fn(
-            self.params, {"tokens": tokens}, self.cache_len)
-        self.pos = tokens.shape[1]
+            self.params, batch, self.cache_len)
+        self.pos = batch["tokens"].shape[1]
         return logits
 
     def decode(self, tokens):
@@ -46,6 +47,13 @@ class ServeSession:
             self.params, self.cache, tokens, self.pos)
         self.pos += 1
         return logits
+
+
+def _on_device(x, device) -> torch.Tensor:
+    """An array (numpy, a JAX array, a tensor) as a tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(np.asarray(x))
+    return x.to(device)
 
 
 def _sample(logits, temperature: float, key):

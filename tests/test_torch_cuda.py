@@ -382,6 +382,44 @@ def test_fused_row_alone_equals_row_in_group(gen):
         assert np.array_equal(alone.histories[0], group.histories[c])
 
 
+@pytest.mark.parametrize("dtype,tol,route", [
+    (torch.float32, 2e-5, "simt"), (torch.bfloat16, 3e-2, "wgmma")])
+@pytest.mark.parametrize("Sq,Sk,Sp,N,K,h", [
+    (80, 77, 80, 4, 4, 64), (24, 77, 80, 4, 4, 64), (130, 33, 48, 8, 2, 128),
+    (64, 200, 200, 4, 1, 32), (200, 64, 64, 6, 3, 256)])
+def test_flash_attention_key_length_matches_plain(gen, dtype, tol, route, Sq,
+                                                  Sk, Sp, N, K, h):
+    """Non-causal Sq queries over the first Sk rows of a key buffer of Sp
+    rows (the view the encoder-decoder passes), on both routes, against
+    the plain version over the same view; the rows past Sk hold large
+    values, which must not leak in. Sk ragged against both kv tiles, more
+    keys than queries and fewer."""
+    q = torch.randn((2, Sq, N, h), generator=gen, device="cuda").to(dtype)
+    k_pad, v_pad = (torch.randn((2, Sp, K, h), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+    k_pad[:, Sk:] = 30.0
+    v_pad[:, Sk:] = 1e3
+    k, v = k_pad[:, :Sk], v_pad[:, :Sk]
+    before = _launches()
+    out = gqa_flash(q, k, v, causal=False, window=0)
+    torch.cuda.synchronize()
+    _assert_one_launch(before, route)
+    assert out.shape == q.shape
+    torch.testing.assert_close(out.float(),
+                               _flash_plain(q, k, v, False, 0).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_attention_key_length_refused_causal(gen):
+    q = torch.randn((1, 64, 2, 32), generator=gen, device="cuda")
+    kv = torch.randn((1, 60, 2, 32), generator=gen, device="cuda")
+    before = _launches()
+    for causal, window in ((True, 0), (False, 8)):
+        with pytest.raises(ValueError, match="non-causal"):
+            gqa_flash(q, kv, kv, causal=causal, window=window)
+    assert _launches() == before
+
+
 def _flash_plain(q, k, v, causal, window):
     """The plain version on the same CUDA tensors, after the kv repeat."""
     G = q.shape[2] // k.shape[2]
@@ -763,3 +801,66 @@ def test_recurrent_serve_on_the_card_matches_cpu(gen, arch, prompt,
         mod.CHUNK = old
     assert bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in tree_leaves(grad))
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder and vision families on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,overrides,launches", [
+    ("whisper-large-v3", dict(encoder_layers=2, num_layers=2, encoder_seq=13),
+     6),
+    ("llama-3.2-vision-11b", {}, 5)])
+def test_encdec_vlm_prefill_on_the_card_matches_cpu(gen, arch, overrides,
+                                                    launches):
+    """The reduced models at 2 layers' worth (whisper: 2 encoder + 2
+    decoder layers over 13 frames padded to 16; the vision model: one
+    group of 5) in float32, every zero-initialised leaf (biases, gates,
+    norm scales) drawn: prefill logits within rtol 1e-3, atol 5e-4 of the
+    CPU path and every cache leaf within 5e-4 of its scale; K4 launched
+    once per encoder layer and per attention of the decoder (the CUDA-core
+    route, a key length of its own where it is the encoder's or a
+    cross-attention), none in decode; greedy tokens equal."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.factory import _modality_extra, build_model
+    from repro_torch.serve.loop import ServeSession, generate
+    from repro_torch.sharding.rules import init_from_defs, tree_map
+
+    def draw_zero_leaves(params, defs, gen):
+        for key, d in defs.items():
+            if isinstance(d, dict):
+                draw_zero_leaves(params[key], d, gen)
+            elif d.init == "zeros":
+                params[key].copy_(0.5 * torch.randn(params[key].shape,
+                                                    generator=gen))
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch).with_overrides(**overrides)
+    card, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    params = init_from_defs(torch.Generator().manual_seed(0), cpu.param_defs)
+    draw_zero_leaves(params, cpu.param_defs, torch.Generator().manual_seed(3))
+    card_params = tree_map(lambda t: t.cuda(), params)
+    batch = {"tokens": prng.randint(prng.PRNGKey(1), (2, 11), 0,
+                                    cfg.vocab_size)}
+    for name, shape in _modality_extra(cfg).items():
+        batch[name] = torch.randn((2, *shape), generator=torch.Generator()
+                                  .manual_seed(2))
+    out = {}
+    for name, bundle, p in (("card", card, card_params), ("cpu", cpu, params)):
+        sess = ServeSession(bundle, p, 16)
+        before = gqa_flash.launches_by_route["simt"]
+        logits = sess.prefill(batch)
+        out[name] = (logits.cpu(), {k: v.cpu() for k, v in sess.cache.items()},
+                     gqa_flash.launches_by_route["simt"] - before)
+    (card_logits, card_cache, n), (cpu_logits, cpu_cache, _) = \
+        out["card"], out["cpu"]
+    assert n == launches
+    torch.testing.assert_close(card_logits, cpu_logits, rtol=1e-3, atol=5e-4)
+    for key in cpu_cache:
+        scale = float(cpu_cache[key].abs().max())
+        torch.testing.assert_close(card_cache[key], cpu_cache[key], rtol=1e-3,
+                                   atol=5e-4 * max(1.0, scale), msg=key)
+    before = gqa_flash.launches
+    toks = generate(card, card_params, batch, 4, 16)
+    assert gqa_flash.launches == before + launches
+    assert torch.equal(toks.cpu(), generate(cpu, params, batch, 4, 16))

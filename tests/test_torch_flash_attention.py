@@ -1,6 +1,8 @@
 """The port's flash attention (K4) on the CPU: its plain version against the
 JAX package's Pallas kernel (interpret mode) and its jnp oracle, over the
-parametrisation of tests/test_kernels.py, and the wrapper's GQA layout.
+parametrisation of tests/test_kernels.py, the wrapper's GQA layout, and its
+key length of its own (``Sk != Sq``, non-causal) against the JAX package's
+`layers.attention` with padded key positions.
 
 Tolerances are those of tests/test_kernels.py: float32 atol/rtol 2e-5 (the
 kernel's online softmax sums in another order than the oracle's softmax),
@@ -16,6 +18,7 @@ import torch
 from repro.kernels.flash_attention import ops as jax_ops
 from repro.kernels.flash_attention.kernel import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro.models import layers as jax_layers
 from repro_torch.kernels.flash_attention.ops import gqa_flash
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -133,3 +136,67 @@ def test_cpu_tensors_touch_no_route_counter():
         x = torch.tensor(_normal((1, 40, 2, h), h)).to(dtype)
         gqa_flash(x, x, x, window=8)
     assert gqa_flash.launches_by_route == before
+
+
+# (Sq, keys in the buffer, valid keys, N, K): whisper's encoder (16 frames,
+# 13 valid), its cross-attention (a prompt over them), the vision model's
+# cross-attention (every image token valid, GQA), more keys than queries
+# and fewer
+KEY_LENGTHS = [(16, 16, 13, 4, 4), (9, 16, 13, 4, 4), (12, 8, 8, 8, 2),
+               (5, 40, 33, 6, 3), (40, 7, 3, 4, 1)]
+
+
+@pytest.mark.parametrize("Sq,Sp,Sk,N,K", KEY_LENGTHS)
+def test_key_length_matches_jax_attention_with_padded_keys(Sq, Sp, Sk, N, K):
+    """Non-causal attention of Sq queries over the first Sk of Sp keys (the
+    view ``k[:, :Sk]``, as the encoder-decoder calls it) against the JAX
+    package's `layers.attention` over all Sp keys with the last Sp - Sk at
+    position -2^30: the padded keys drop out of every sum. 2e-5."""
+    B, h = 2, 16
+    q = _normal((B, Sq, N, h), Sq + Sp)
+    k = _normal((B, Sp, K, h), Sq + Sp + 1)
+    v = _normal((B, Sp, K, h), Sq + Sp + 2)
+    pos_q = np.tile(np.arange(Sq, dtype=np.int32), (B, 1))
+    pos_k = np.tile(np.where(np.arange(Sp) < Sk, np.arange(Sp), -(1 << 30)
+                             ).astype(np.int32), (B, 1))
+    got = gqa_flash(torch.tensor(q), torch.tensor(k)[:, :Sk],
+                    torch.tensor(v)[:, :Sk], causal=False, window=0)
+    assert got.shape == (B, Sq, N, h)
+    want = jax_layers.attention(*(jnp.asarray(a) for a in (q, k, v, pos_q,
+                                                           pos_k)),
+                                causal=False, window=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16), (False, 0)])
+def test_equal_lengths_still_match_jax_oracle(causal, window):
+    """With Sq == Sk the wrapper computes what it computed before the key
+    length: the JAX oracle's function, GQA 6:2."""
+    B, S, N, K, h = 2, 64, 6, 2, 16
+    q, k, v = (_normal((B, S, n, h), 40 + n) for n in (N, K, K))
+    got = gqa_flash(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                    causal=causal, window=window)
+    rep = [jnp.asarray(a).transpose(0, 2, 1, 3) for a in (q, k, v)]
+    rep[1], rep[2] = (jnp.repeat(t, N // K, axis=1) for t in rep[1:])
+    want = jax_ref(*rep, causal=causal, window=window).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 8), (True, 8)])
+def test_key_length_refuses_causal_and_windowed(causal, window):
+    q = torch.zeros((1, 16, 4, 8))
+    kv = torch.zeros((1, 13, 4, 8))
+    with pytest.raises(ValueError, match="non-causal attention without a "
+                       "window"):
+        gqa_flash(q, kv, kv, causal=causal, window=window)
+
+
+def test_key_length_on_the_cpu_touches_no_counter():
+    before = gqa_flash.launches, dict(gqa_flash.launches_by_route)
+    q = torch.tensor(_normal((1, 16, 2, 16), 1))
+    kv = torch.tensor(_normal((1, 13, 2, 16), 2))
+    for dtype in (torch.float32, torch.bfloat16):
+        gqa_flash(q.to(dtype), kv.to(dtype), kv.to(dtype), causal=False)
+    assert (gqa_flash.launches, gqa_flash.launches_by_route) == before

@@ -36,8 +36,10 @@ from repro_torch.sharding.rules import ParamDef, init_from_defs
 
 DENSE = ["chatglm3-6b", "command-r-plus-104b", "gemma3-4b", "stablelm-12b"]
 # every arch the port registers: the dense ones, the mixture-of-experts
-# ones, the hybrid and SSM ones and the paper's logistic regression
+# ones, the encoder-decoder and vision ones, the hybrid and SSM ones and
+# the paper's logistic regression
 PORTED = sorted(DENSE + ["deepseek-moe-16b", "qwen3-moe-235b-a22b",
+                         "whisper-large-v3", "llama-3.2-vision-11b",
                          "recurrentgemma-2b", "falcon-mamba-7b",
                          "paper-logreg"])
 
@@ -133,9 +135,15 @@ def test_init_from_defs_scales_in_place_with_the_old_bits(dtype):
         assert torch.equal(got[name], (normal * scale).to(dt)), name
 
 
-def test_factory_raises_for_families_not_ported():
-    cfg = dataclasses.replace(get_config("gemma3-4b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_registry_holds_every_jax_config():
+    """The port registers what the JAX package registers, every family."""
+    from repro.configs import list_configs as jax_list_configs
+    assert list_configs() == jax_list_configs()
+
+
+def test_factory_raises_for_an_unknown_family():
+    cfg = dataclasses.replace(get_config("gemma3-4b"), family="diffusion")
+    with pytest.raises(ValueError, match="unknown family 'diffusion'"):
         build_model(cfg, device="cpu")
 
 

@@ -8,6 +8,8 @@ on the card.
     python3 tools/profile_port.py serve_moe    # the deepseek-moe-16b serve path
     python3 tools/profile_port.py serve_hybrid # recurrentgemma-2b, prompt 4096
     python3 tools/profile_port.py serve_ssm    # the falcon-mamba-7b serve path
+    python3 tools/profile_port.py serve_encdec # whisper-large-v3, prompt 448
+    python3 tools/profile_port.py serve_vlm    # llama-3.2-vision-11b, prompt 2048
     python3 tools/profile_port.py sweep_epoch  # the fused engine and K3 only
     python3 tools/profile_port.py train        # one SVRG train step only
 
@@ -57,9 +59,12 @@ At the rcv1 width (n = 20242, p = 2048; data from
     device kernels are also summed by kind (as in the `train` mode). The
     `serve_moe` mode does the same at deepseek-moe-16b's full width and
     depth (28 layers, 64 experts), `serve_hybrid` at recurrentgemma-2b's
-    (26 layers, prompt 4096) and `serve_ssm` at falcon-mamba-7b's (64
-    layers); none is part of the default run. The weights are drawn in
-    bf16, as `launch.serve.run` draws them.
+    (26 layers, prompt 4096), `serve_ssm` at falcon-mamba-7b's (64
+    layers), `serve_encdec` at whisper-large-v3's (32 + 32 layers, prompt
+    448) and `serve_vlm` at llama-3.2-vision-11b's (40 layers); none is
+    part of the default run. The weights are drawn in bf16, as
+    `launch.serve.run` draws them; whisper's frame and the vision model's
+    patch embeddings standard normal from seed 0.
 
 The `train` mode (not part of the default run): gemma3-4b at full width
 and 12 layers, batch 2, sequence 2048 (chip_smoke.py's training phase), one
@@ -412,7 +417,7 @@ def profile_serve(arch: str = "gemma3-4b", decode_steps: int = 4,
     steps, each window timed without and under the profiler."""
     from repro_torch import prng
     from repro_torch.launch.serve import serve_config
-    from repro_torch.models.factory import build_model
+    from repro_torch.models.factory import _modality_extra, build_model
     from repro_torch.serve.loop import ServeSession
     from repro_torch.sharding.rules import init_from_defs
 
@@ -422,6 +427,9 @@ def profile_serve(arch: str = "gemma3-4b", decode_steps: int = 4,
                             bundle.param_defs)
     batch = {"tokens": prng.randint(prng.PRNGKey(0, "cuda"), (4, prompt), 0,
                                     cfg.vocab_size)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, shape in _modality_extra(cfg).items():
+        batch[name] = torch.randn((4, *shape), generator=gen, device="cuda")
     sess = ServeSession(bundle, params, prompt + 4 * decode_steps)
     wall, prof_wall, events = _profiled(lambda: sess.prefill(batch))
     print(json.dumps({"serve": "prefill", "arch": cfg.name, "batch": 4,
@@ -543,6 +551,12 @@ def main(argv=None) -> int:
         return 0
     if argv == ["serve_ssm"]:
         profile_serve("falcon-mamba-7b")
+        return 0
+    if argv == ["serve_encdec"]:
+        profile_serve("whisper-large-v3", prompt=448)
+        return 0
+    if argv == ["serve_vlm"]:
+        profile_serve("llama-3.2-vision-11b")
         return 0
     if argv == ["train"]:
         profile_train()
