@@ -1,7 +1,9 @@
 """Configuration the port reads: its own copies of the JAX package's
-`ModelConfig`, `SVRGConfig`, `TrainConfig` and `ServeConfig`, field for
-field with the same defaults (the port imports nothing of that package).
-The shape, mesh and TPU hardware configs are not copied."""
+`ModelConfig`, `SVRGConfig`, `TrainConfig`, `ServeConfig` and
+`HardwareSpec`, field for field with the same defaults (the port imports
+nothing of that package), and the H100's `HardwareSpec`, which the
+port's roofline model uses by default. The shape and mesh configs are not
+copied."""
 from __future__ import annotations
 
 import dataclasses
@@ -159,3 +161,26 @@ class ServeConfig:
     max_decode_steps: int = 32
     temperature: float = 0.0
     kv_cache_dtype: str = "bfloat16"
+
+
+# ---------------------------------------------------------------------------
+# Hardware constants for the roofline model (`repro_torch.launch.roofline`)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    name: str = "tpu_v5e"
+    peak_flops_bf16: float = 197e12       # FLOP/s per chip
+    hbm_bandwidth: float = 819e9          # B/s per chip
+    ici_bandwidth: float = 50e9           # B/s per link (~ per axis direction)
+    hbm_bytes: float = 16e9               # capacity per chip
+
+
+TPU_V5E = HardwareSpec()
+
+# NVIDIA H100 SXM5, from NVIDIA's H100 Tensor Core GPU datasheet (SXM5
+# column, dense rates without sparsity, at the 700 W limit): 3.35 TB/s of
+# HBM3, 989 TFLOP/s dense bf16 on the tensor cores, 80 GB, NVLink 900 GB/s.
+H100_SXM = HardwareSpec(name="h100_sxm", peak_flops_bf16=989e12,
+                        hbm_bandwidth=3.35e12, ici_bandwidth=900e9,
+                        hbm_bytes=80e9)

@@ -43,15 +43,21 @@ other rows of the sweep — the same group key as the JAX package. Rows never
 mix inside the engine, so a row's results do not depend on the rows it is
 batched with (bit for bit on the CPU).
 
-Not in this slice, each raising `NotImplementedError`: ``telemetry=True``
-(the obs slice), a ``mesh`` (multi-GPU row sharding) and fused mode for an
-objective other than `LogisticRegression` (the objectives slice). None of
-them falls back to another path.
+Every group runs through the persistent runner cache
+(`repro_torch.service.cache`), which the service's scheduler shares, and
+each runner call is bracketed on the host by the tracer's ``execute`` span
+and the performance ledger (`repro_torch.obs`), both opt-in.
+
+Not in this slice, each raising `NotImplementedError`: a ``mesh``
+(multi-GPU row sharding) and fused mode for an objective other than
+`LogisticRegression` (the objectives slice). Neither falls back to another
+path.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,7 +73,10 @@ from repro_torch.core.asysvrg import (
 )
 from repro_torch.core.hogwild import _hogwild_epochs_core, _resolve_hogwild_steps
 from repro_torch.core.objective import LogisticRegression, Objective, get_objective
+from repro_torch.kernels.dispatch import mode_tags
 from repro_torch.kernels.sweep_epoch import fused_group_fn
+from repro_torch.obs import ledger as _ledger
+from repro_torch.obs.trace import tracer as _tracer
 
 ALGOS = ("asysvrg", "hogwild", "svrg")
 # svrg rows run on the asysvrg engine (τ=0 degenerate case), so two engines
@@ -109,7 +118,10 @@ class SweepSpec:
     sweep-epoch kernel, `repro_torch.kernels.sweep_epoch`), or "" for
     `default_engine_mode()`. The mode joins the group key, so fused and
     vmap rows never share a group.
-    ``telemetry`` must stay False until the obs layer is ported.
+    ``telemetry`` opts the row into `repro_torch.obs.telemetry` series
+    (realized staleness, update norms) on its `SweepResult`: reporting
+    computed on the host from already-returned arrays, absent from the
+    group key, so it never changes a row's numbers.
     """
     seed: int = 0
     scheme: str = "inconsistent"
@@ -139,6 +151,14 @@ class SweepResult(NamedTuple):
     ``histories``/``effective_passes`` have the GLOBAL max-epochs width;
     rows with a shorter budget are frozen past their own epoch count — use
     :meth:`curve` for a row trimmed to its own budget.
+    ``telemetry`` (a `repro_torch.obs.telemetry.SweepTelemetry`, None
+    unless a spec opted in) carries realized-staleness / update-norm
+    series derived from the arrays above.
+    ``diverged_rows`` (None unless a watchdog ran and flagged something)
+    holds, per row, -1 for healthy or the last trusted epoch for a row the
+    `repro_torch.obs.watchdog` detected diverging; under ``cancel_row``
+    that is also the epoch the row was frozen at (``epochs_per_row``
+    reflects it).
     """
     specs: Tuple[SweepSpec, ...]
     histories: np.ndarray         # [C, max_epochs+1] loss after each epoch
@@ -147,6 +167,8 @@ class SweepResult(NamedTuple):
     total_updates: np.ndarray     # [C] updates applied over all row epochs
     epochs_per_row: np.ndarray    # [C] each row's executed epoch budget
     param_shapes: Tuple = ()      # objective's ((path, shape, dtype), ...)
+    telemetry: Optional[object] = None  # SweepTelemetry when a row opted in
+    diverged_rows: Optional[np.ndarray] = None  # [C] -1 or last trusted epoch
 
     def curve(self, c: int) -> Tuple[np.ndarray, np.ndarray]:
         """(effective_passes, loss history) trimmed to row c's own budget."""
@@ -231,10 +253,6 @@ def _normalize_spec(spec: SweepSpec) -> SweepSpec:
         raise ValueError(
             f"unknown engine_mode {spec.engine_mode!r} "
             f"(expected one of {ENGINE_MODES}, or '' to inherit)")
-    if spec.telemetry:
-        raise NotImplementedError(
-            "telemetry=True needs repro.obs.telemetry, which the obs slice "
-            "of the port brings")
     if spec.algo == "svrg":
         if spec.tau != 0:
             raise ValueError(
@@ -391,8 +409,9 @@ def _hogwild_group_fn(obj: Objective, num_data: int, epochs: int, total: int,
 def _group_fn(engine: str, *, obj: Objective, num_data: int, epochs: int,
               total: int, buf_len: int, option: int, drop_prob: float,
               fused: bool):
-    """The group body for an engine and mode (built directly; the runner
-    cache arrives with the service slice)."""
+    """The group body for an engine and mode; `repro_torch.service.cache`
+    builds each at most once per key. The body closes over ``obj``'s
+    methods only: the data and every per-row value are call arguments."""
     if fused:
         return fused_group_fn(obj, num_data, engine=engine, epochs=epochs,
                               total=total, buf_len=buf_len, option=option,
@@ -432,8 +451,24 @@ def _dispatch_group(obj: Objective, specs: Sequence[SweepSpec],
                     resolved: Sequence[_Resolved], members: Sequence[int],
                     key_: _GroupKey, group_epochs: int, w_init,
                     drop_prob: float):
-    """Run ONE group on the objective's device; returns (histories [rows,
-    group_epochs+1], final_w [rows, flat_dim]) as numpy."""
+    """Run ONE group on the objective's device through the persistent
+    runner cache; returns (histories [rows, group_epochs+1], final_w
+    [rows, flat_dim]) as numpy.
+
+    ``specs``/``resolved`` are row-aligned sequences indexed by ``members``
+    — `run_sweep` passes a single plan's rows, the service scheduler a
+    coalesced multi-request batch. The runner comes from
+    `repro_torch.service.cache` (imported here: the service layer builds on
+    this module), so every caller shares one runner per key.
+
+    The tracer's ``execute`` span and the ledger's clock bracket the
+    runner call AND the copy of its results to the host. A call on the
+    card returns once its launches are queued; the copy waits for them,
+    so the bracket covers the device's work, and the ledger's ``wall_s``
+    is the group's time end to end, not the launches' enqueue.
+    """
+    from repro_torch.service.cache import get_group_runner
+
     _, engine, total, option, buf_len, fused = key_
     device = w_init.device
     f32 = dict(dtype=torch.float32, device=device)
@@ -452,30 +487,76 @@ def _dispatch_group(obj: Objective, specs: Sequence[SweepSpec],
     else:
         args = (keys, etas, taus, scheme_ids, delay_ids, row_epochs, w0_rows)
 
+    runner = get_group_runner(engine, group_epochs=group_epochs, total=total,
+                              option=option, buf_len=buf_len,
+                              drop_prob=drop_prob, obj=obj, fused=fused)
     data = obj.data_args()
-    runner = _group_fn(engine, obj=obj, num_data=len(data),
-                       epochs=group_epochs, total=total, buf_len=buf_len,
-                       option=option, drop_prob=drop_prob, fused=fused)
-    w_fin, hist = runner(*data, *args)
-    return hist.cpu().numpy(), w_fin.cpu().numpy()
+    # Both brackets sit around the runner call, never inside an epoch body
+    # or a kernel launcher (RL006); tags are built only with the tracer on.
+    tr = _tracer()
+    tags = {}
+    if tr.enabled:
+        tags = dict(engine=engine, rows=len(members), total=int(total),
+                    group_epochs=int(group_epochs),
+                    **mode_tags(fused, device))
+    led_on = _ledger.ledger_enabled()
+    t0 = time.perf_counter() if led_on else 0.0
+    with tr.span_active("execute", **tags):
+        w_fin, hist = runner(*data, *args)
+        hist, w_fin = hist.cpu().numpy(), w_fin.cpu().numpy()
+    if led_on:
+        _ledger.ledger().record_dispatch(
+            key=key_, rows=len(members), dim=int(w_init.shape[0]),
+            epochs=int(group_epochs), wall_s=time.perf_counter() - t0)
+    return hist, w_fin
+
+
+def group_label(key_: _GroupKey) -> str:
+    """Human-readable label for one group (progress/ledger ids)."""
+    _, engine, total, option, buf_len, fused = key_
+    return (f"{engine}-{'fused' if fused else 'vmap'}-M{int(total)}"
+            f"-opt{option}-buf{int(buf_len)}")
 
 
 def _assemble_result(specs: Tuple[SweepSpec, ...],
                      resolved: Sequence[_Resolved], histories: np.ndarray,
                      final_w: np.ndarray,
-                     param_shapes: Tuple = ()) -> SweepResult:
+                     param_shapes: Tuple = (), w_init=None,
+                     diverged: Optional[Dict[int, int]] = None) -> SweepResult:
     """Derive the accounting rows (passes, totals, epoch budgets) from the
-    resolved specs and build the `SweepResult`."""
+    resolved specs and build the `SweepResult` — the ONE definition all
+    dispatch paths (run_sweep, service demux, checkpointed jobs) share.
+
+    ``w_init`` (the flat start iterate) enables the opt-in telemetry:
+    rows with ``SweepSpec.telemetry`` get realized-staleness / update-norm
+    series derived from the already-final arrays here.
+
+    ``diverged`` (flat row -> last trusted epoch, from the watchdog)
+    becomes the optional ``diverged_rows`` marker array; callers passing
+    it hand in ``resolved`` rows whose epoch budgets already reflect any
+    ``cancel_row`` truncation, so the accounting below follows."""
     epochs_per_row = np.asarray([r.epochs for r in resolved], np.int64)
     passes = _accumulate_passes([r.passes_per_epoch for r in resolved],
                                 epochs_per_row, histories.shape[1] - 1)
     total_updates = epochs_per_row * np.asarray(
         [r.total for r in resolved], np.int64)
+    telemetry = None
+    if w_init is not None and any(s.telemetry for s in specs):
+        # imported here: repro_torch.obs.telemetry imports repro_torch.core
+        from repro_torch.obs import telemetry as _telemetry
+        telemetry = _telemetry.compute(specs, resolved, histories, final_w,
+                                       w_init)
+    diverged_rows = None
+    if diverged:
+        diverged_rows = np.full(len(specs), -1, np.int64)
+        for c, e in diverged.items():
+            diverged_rows[c] = e
     return SweepResult(specs=specs, histories=histories,
                        effective_passes=passes, final_w=final_w,
                        total_updates=total_updates,
                        epochs_per_row=epochs_per_row,
-                       param_shapes=param_shapes)
+                       param_shapes=param_shapes, telemetry=telemetry,
+                       diverged_rows=diverged_rows)
 
 
 def run_sweep(obj: Optional[Objective], epochs: int,
@@ -483,8 +564,10 @@ def run_sweep(obj: Optional[Objective], epochs: int,
               drop_prob: float = 0.02, mesh=None) -> SweepResult:
     """Run every spec for its epoch budget, one engine run per
     (objective, engine, M̃, option, buf_len, fused) group, on the
-    objective's device. ``mesh`` must be None: multi-GPU row sharding is a later
-    slice."""
+    objective's device. Runners come from the persistent cache in
+    `repro_torch.service.cache`: a repeated sweep with the same group dims
+    and data shapes constructs no runner. ``mesh`` must be None:
+    multi-GPU row sharding is a later slice."""
     if mesh is not None:
         raise NotImplementedError(
             "run_sweep(mesh=...) needs multi-GPU row sharding, which a later "
@@ -507,4 +590,4 @@ def run_sweep(obj: Optional[Objective], epochs: int,
             final_w[c] = w_fin[row]
 
     return _assemble_result(specs, resolved, histories, final_w,
-                            param_shapes=obj.param_shapes())
+                            param_shapes=obj.param_shapes(), w_init=w_init)

@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_BUILDS = [0]  # libraries nvcc compiled in this process (see `builds`)
 
 
 def nvcc() -> str:
@@ -85,8 +86,16 @@ def build(names: Sequence[str] = SOURCES) -> None:
             failed.append(f"nvcc failed for {name}.cu:\n{out}")
             continue
         os.replace(tmp, lib)
+        _BUILDS[0] += 1
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def builds() -> int:
+    """How many kernel libraries nvcc has compiled in this process; the
+    runner cache counts the ones built during a group's call as compiles
+    (`repro_torch.service.cache`)."""
+    return _BUILDS[0]
 
 
 def library(name: str) -> ctypes.CDLL:

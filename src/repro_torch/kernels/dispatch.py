@@ -26,3 +26,13 @@ def route(*tensors: torch.Tensor) -> str:
     if device.type == "cuda":
         return CUDA
     raise ValueError(f"no kernel for device {device}")
+
+
+def mode_tags(fused: bool, device) -> dict:
+    """Span tags describing HOW a group dispatch executes, stamped onto the
+    tracer's ``execute`` spans by `repro_torch.core.sweep._dispatch_group`:
+    the engine mode, and as ``backend`` the device type of the group's
+    tensors (``"cuda"`` launches the kernels, ``"cpu"`` takes their plain
+    versions)."""
+    return {"engine_mode": "fused" if fused else "vmap",
+            "backend": torch.device(device).type}

@@ -32,7 +32,7 @@ B, K, S_pad, h]``, computed once at prefill.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,13 +48,43 @@ NEG_POS = -(1 << 30)      # the position of a padded frame
 
 
 def _sinusoid(positions, dim: int):
-    """[B,S] -> [B,S,dim] float32 sinusoidal embeddings."""
+    """[B,S] -> [B,S,dim] float32 sinusoidal embeddings, computed on the CPU
+    (``positions`` are copied there if they lie elsewhere), as the JAX
+    package computes its table; callers move the table to their device.
+    The card's float32 ``exp`` and ``sin`` round apart from the CPU's, and
+    at the encoder's positions (to 1503) an ulp of a frequency moves an
+    angle by ~1e-4 rad: a table computed on the card put the card's float32
+    whisper logits 3e-3 to 5e-3 from the CPU's."""
     half = dim // 2
-    step = torch.tensor(10000.0, device=positions.device).log() / max(1, half - 1)
-    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
-                                    device=positions.device) * step)
-    ang = positions.to(torch.float32)[..., None] * freqs
+    step = torch.tensor(10000.0).log() / max(1, half - 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32) * step)
+    ang = positions.cpu().to(torch.float32)[..., None] * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+_TABLE_BLOCK = 4096       # the resident table grows by this many positions
+_TABLES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _sinusoid_table(n: int, dim: int, device) -> torch.Tensor:
+    """[n', dim] float32 table of positions 0 .. n'-1 (n' >= n, a multiple
+    of `_TABLE_BLOCK`) resident on ``device``. One CPU table per ``dim``
+    (`_sinusoid`) is computed when a longer one is first asked for, and
+    each device holds a copy of it: every device adds the same bits, and a
+    decode step indexes its device's copy instead of copying a table to
+    the card for every token."""
+    device = torch.device(device)
+    cpu = _TABLES.get((dim, torch.device("cpu")))
+    if cpu is None or cpu.shape[0] < n:
+        rows = -(-max(n, 1) // _TABLE_BLOCK) * _TABLE_BLOCK
+        cpu = _sinusoid(torch.arange(rows, dtype=torch.int32)[None], dim)[0]
+        for key in [k for k in _TABLES if k[0] == dim]:
+            del _TABLES[key]
+        _TABLES[(dim, torch.device("cpu"))] = cpu
+    table = _TABLES.get((dim, device))
+    if table is None:
+        table = _TABLES[(dim, device)] = cpu.to(device)
+    return table
 
 
 def _xattn_defs(cfg: ModelConfig, L: int, dtype: str) -> Dict:
@@ -148,7 +178,8 @@ def encode(cfg: ModelConfig, params, enc_feats, attend=flash_attend):
     pos = _positions(B, Sp, S, enc_feats.device)
     h = torch.einsum("bsf,fd->bsd", enc_feats.to(dt),
                      params["enc_in_proj"].to(dt))
-    h = h + _sinusoid(pos.clamp(min=0), cfg.d_model).to(h.dtype)
+    table = _sinusoid_table(S, cfg.d_model, h.device)
+    h = h + table[pos.clamp(min=0).long()].to(h.dtype)
     for lp in tf._unstack(params["enc_blocks"], cfg.encoder_layers):
         if attend is plain_attend and cfg.remat == "full":
             h = checkpoint(_enc_block, cfg, lp, h, pos, S, attend,
@@ -193,9 +224,12 @@ def _enc_positions(cfg: ModelConfig, B: int, Sp: int, device):
     return _positions(B, Sp, cfg.encoder_seq, device)
 
 
-def _embed(cfg: ModelConfig, params, tokens, pos):
+def _embed(cfg: ModelConfig, params, tokens, start: int = 0):
+    """Token embeddings plus the sinusoid of positions ``start`` onwards."""
+    S = tokens.shape[1]
     h = params["tok_embed"][tokens].to(getattr(torch, cfg.dtype))
-    return h + _sinusoid(pos, cfg.d_model).to(h.dtype)
+    table = _sinusoid_table(start + S, cfg.d_model, h.device)
+    return h + table[start:start + S].to(h.dtype)
 
 
 def _decoder_hidden(cfg: ModelConfig, params, tokens, enc_out):
@@ -203,7 +237,7 @@ def _decoder_hidden(cfg: ModelConfig, params, tokens, enc_out):
     B, S = tokens.shape
     pos = tf._positions(B, S, tokens.device)
     enc_pos = _enc_positions(cfg, B, enc_out.shape[1], tokens.device)
-    h = _embed(cfg, params, tokens, pos)
+    h = _embed(cfg, params, tokens)
     for lp in tf._unstack(params["dec_blocks"], cfg.num_layers):
         if cfg.remat == "full":
             h = checkpoint(_train_dec_block, cfg, lp, h, pos, enc_out,
@@ -245,7 +279,7 @@ def prefill(cfg: ModelConfig, params, enc_feats, tokens, cache_len: int):
     Se = enc_out.shape[1]
     pos = tf._positions(B, S, tokens.device)
     enc_pos = _enc_positions(cfg, B, Se, tokens.device)
-    h = _embed(cfg, params, tokens, pos)
+    h = _embed(cfg, params, tokens)
     dt = getattr(torch, cfg.dtype)
     L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     cache = {name: torch.zeros((L, B, K, n, hd), dtype=dt, device=h.device)
@@ -274,7 +308,7 @@ def decode_step(cfg: ModelConfig, params, cache: Dict, tokens, pos: int):
     pos_q = tf._positions(B, 1, tokens.device, pos)
     pos_k = tf._positions(B, S, tokens.device)
     enc_pos = _enc_positions(cfg, B, Se, tokens.device)
-    h = _embed(cfg, params, tokens[:, None], pos_q)
+    h = _embed(cfg, params, tokens[:, None], pos)
     for i in range(cfg.num_layers):
         lp = tf._layer(params["dec_blocks"], i)
         h = tf.decode_attention(cfg, lp, h, cache, i, pos, pos_q, pos_k, 0)

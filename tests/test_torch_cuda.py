@@ -864,3 +864,123 @@ def test_encdec_vlm_prefill_on_the_card_matches_cpu(gen, arch, overrides,
     toks = generate(card, card_params, batch, 4, 16)
     assert gqa_flash.launches == before + launches
     assert torch.equal(toks.cpu(), generate(cpu, params, batch, 4, 16))
+
+
+def test_flash_attention_simt_at_whisper_encoder_shape(gen):
+    """K4's float32 CUDA-core route at whisper-large-v3's encoder shape:
+    1504 queries over the first 1500 rows of the 1504-row key buffer, MHA
+    N = K = 20, h 64, against the plain attention on the same CUDA
+    inputs; the 4 padded rows hold large values that must not leak in."""
+    q = torch.randn((2, 1504, 20, 64), generator=gen, device="cuda")
+    k_pad, v_pad = (torch.randn((2, 1504, 20, 64), generator=gen,
+                                device="cuda") for _ in range(2))
+    k_pad[:, 1500:] = 30.0
+    v_pad[:, 1500:] = 1e3
+    k, v = k_pad[:, :1500], v_pad[:, :1500]
+    before = _launches()
+    out = gqa_flash(q, k, v, causal=False, window=0)
+    torch.cuda.synchronize()
+    _assert_one_launch(before, "simt")
+    torch.testing.assert_close(out, _flash_plain(q, k, v, False, 0),
+                               atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The sweep service and the ledger on the card
+# ---------------------------------------------------------------------------
+
+def _service_obj(gen):
+    n, p = 512, 256
+    X = torch.randn((n, p), generator=gen, device="cuda") / p ** 0.5
+    y = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5,
+                    -1.0, 1.0)
+    return LogisticRegression(X, y, 1e-4)
+
+
+def _service_specs(mode):
+    return [SweepSpec(seed=s, scheme=scheme, step_size=0.5, num_threads=4,
+                      engine_mode=mode)
+            for s, scheme in ((0, "inconsistent"), (1, "unlock"))]
+
+
+def test_service_warm_flush_constructs_and_builds_nothing(gen):
+    """Two tenants, fused and batched requests: a flush demuxes each to a
+    standalone run_sweep (fused bits equal, batched allclose), and a second
+    flush of the same shapes constructs no runner and builds no kernel."""
+    from repro_torch.kernels import _build
+    from repro_torch.service import SweepService, cache_stats
+
+    obj = _service_obj(gen)
+    svc = SweepService(obj, epochs=2)
+    for _ in range(2):
+        base, built = cache_stats(), _build.builds()
+        a = svc.submit(_service_specs("fused"), tenant="a")
+        b = svc.submit(_service_specs("vmap"), tenant="b")
+        svc.flush()
+    warm = cache_stats().since(base)
+    assert (warm.misses, warm.compiles, _build.builds() - built) == (0, 0, 0)
+    fused, batched = svc.result(a), svc.result(b)
+    alone = run_sweep(obj, 2, _service_specs("fused"))
+    assert np.array_equal(fused.histories, alone.histories)
+    assert np.array_equal(fused.final_w, alone.final_w)
+    alone = run_sweep(obj, 2, _service_specs("vmap"))
+    np.testing.assert_allclose(batched.histories, alone.histories,
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(batched.final_w, alone.final_w, rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_ledger_wall_covers_the_device_work(gen, monkeypatch):
+    """The ledger's wall time of a fused group is not shorter than a
+    CUDA-event pair around the same runner call: the bracket ends after
+    the results reached the host, not when the launches were queued."""
+    from repro_torch.obs import ledger
+    from repro_torch.service import cache
+
+    obj = _service_obj(gen)
+    specs = [SweepSpec(seed=0, step_size=0.5, num_threads=4, inner_steps=4096,
+                       engine_mode="fused")]
+    run_sweep(obj, 2, specs)                     # runner and kernels warm
+    fetch, pairs = cache.get_group_runner, []
+
+    def timed_fetch(*args, **kwargs):
+        runner = fetch(*args, **kwargs)
+
+        def call(*call_args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = runner(*call_args)
+            stop.record()
+            pairs.append((start, stop))
+            return out
+        return call
+
+    monkeypatch.setattr(cache, "get_group_runner", timed_fetch)
+    led = ledger.enable_ledger()
+    led.clear()
+    try:
+        run_sweep(obj, 2, specs)
+        (entry,) = led.snapshot().values()
+    finally:
+        ledger.disable_ledger(clear=True)
+    (start, stop), = pairs
+    device_ms = start.elapsed_time(stop)
+    assert device_ms > 1.0
+    assert 1e3 * entry["wall_s_total"] >= device_ms
+    assert entry["flops_source"] == "analytic" and entry["attained_frac"] > 0
+
+
+def test_sinusoid_table_is_the_cpu_table(gen):
+    """whisper's sinusoid table is built on the CPU for CUDA positions too
+    (the card's float32 exp and sin round apart from the CPU's), so the
+    card and the CPU path add the same bits."""
+    from repro_torch.models import encdec
+
+    pos = torch.arange(1504, dtype=torch.int32)[None].expand(2, 1504)
+    table = encdec._sinusoid(pos.cuda(), 1280)
+    assert torch.equal(table.cpu(), encdec._sinusoid(pos, 1280))
+    resident = encdec._sinusoid_table(1504, 1280, "cuda")
+    assert resident.is_cuda
+    assert torch.equal(resident.cpu(),
+                       encdec._sinusoid_table(1504, 1280, "cpu"))

@@ -140,6 +140,39 @@ def test_sinusoid_matches_jax(S, dim):
            atol=2 * float(np.spacing(np.float32(S))))
 
 
+def test_sinusoid_frequencies_within_an_ulp_of_jax():
+    """The table is not bit-equal to the JAX package's: XLA's float32 exp
+    and torch's round apart on some frequencies (48 of 640 at d_model
+    1280), never by more than one ulp. `_sinusoid` computes on the CPU
+    whatever the positions' device, so the card and the CPU path share
+    one table (tests/test_torch_cuda.py holds that on the card)."""
+    half = 640
+    step = np.float32(np.log(np.float32(1e4))) / np.float32(half - 1)
+    arg = -np.arange(half, dtype=np.float32) * step
+    mine = encdec._sinusoid(torch.zeros((1, 1), dtype=torch.int32), 2 * half)
+    assert mine.device.type == "cpu"
+    theirs = np.asarray(jnp.exp(jnp.asarray(arg)))
+    freqs = torch.exp(torch.as_tensor(arg)).numpy()
+    ulps = np.abs(freqs.view(np.int32) - theirs.view(np.int32))
+    assert ulps.max() <= 1
+
+
+@pytest.mark.parametrize("n,dim", [(1504, 1280), (5000, 64)])
+def test_sinusoid_table_is_resident_and_matches_jax(n, dim):
+    """The table the encoder and every decode step index: positions 0 ..
+    n'-1 in whole blocks, the same tensor on later calls (nothing is
+    recomputed or copied per token), each row within the tolerance of
+    `test_sinusoid_matches_jax` of the JAX package's."""
+    table = encdec._sinusoid_table(n, dim, "cpu")
+    rows = table.shape[0]
+    assert rows >= n and rows % encdec._TABLE_BLOCK == 0
+    assert table.shape == (rows, dim) and table.dtype == torch.float32
+    assert encdec._sinusoid_table(n - 1, dim, "cpu") is table
+    pos = np.arange(n, dtype=np.int32)[None]
+    _close(table[:n][None], jencdec._sinusoid(jnp.asarray(pos), dim),
+           rtol=0, atol=2 * float(np.spacing(np.float32(n))))
+
+
 # ---------------------------------------------------------------------------
 # The model, reduced, with 3 padded frames
 # ---------------------------------------------------------------------------

@@ -76,6 +76,16 @@ RECURRENT_MODULES = (
     "repro_torch.configs.falcon_mamba_7b")
 
 
+# the modules of the obs and service slice
+OBS_SERVICE_MODULES = (
+    "repro_torch.obs.trace", "repro_torch.obs.metrics",
+    "repro_torch.obs.progress", "repro_torch.obs.prometheus",
+    "repro_torch.obs.ledger", "repro_torch.obs.telemetry",
+    "repro_torch.obs.watchdog", "repro_torch.launch.roofline",
+    "repro_torch.service.cache",
+    "repro_torch.service.scheduler", "repro_torch.service.api")
+
+
 def _assert_checked(modules):
     proc = _run([sys.executable, "-c", _LIST_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
@@ -96,6 +106,10 @@ def test_checks_cover_the_moe_modules():
 
 def test_checks_cover_the_recurrent_modules():
     _assert_checked(RECURRENT_MODULES)
+
+
+def test_checks_cover_the_obs_and_service_modules():
+    _assert_checked(OBS_SERVICE_MODULES)
 
 
 def test_source_never_names_jax_or_repro():

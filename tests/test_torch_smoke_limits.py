@@ -133,3 +133,14 @@ def test_depth_cut_draws_at_the_full_models_scale(arch, cut, full):
             assert abs(float(x.std()) / want - 1) < 0.05, path
         else:
             assert torch.equal(x, before[path]), path
+
+
+def test_encdec_card_vs_cpu_limit_tightened_not_loosened():
+    """whisper's card-vs-CPU limit stands below the recurrent families'
+    5e-3 it was held at before its sinusoid table moved to the CPU; the
+    vision model's stays at it."""
+    whisper, vision = smoke.ENCDEC_VLM_ATOL
+    assert whisper < smoke.RECURRENT_ATOL == 5e-3
+    assert vision == smoke.RECURRENT_ATOL
+    assert [arch for arch, _, _ in smoke.ENCDEC_VLM_CUT] == \
+        [smoke.ENCDEC_ARCH, smoke.VLM_ARCH]

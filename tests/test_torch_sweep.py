@@ -14,6 +14,7 @@ from repro.core import sweep as jsw
 from repro.core.objective import LogisticRegression as JaxLogReg
 from repro_torch.core import sweep as psw
 from repro_torch.core.objective import LogisticRegression
+from repro_torch.service import SweepService
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -87,11 +88,14 @@ def test_short_row_equals_shorter_run(runs):
     assert np.all(pres.histories[9, 2:] == pres.histories[9, 1])
 
 
-@pytest.mark.parametrize("kwargs", [dict(telemetry=True)])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object())])
 def test_unported_options_raise(runs, kwargs):
+    """What the port still lacks raises: a mesh (multi-GPU row sharding),
+    here through the sweep service's entry point. ``telemetry=True``, which
+    raised before the obs slice, runs now (tests/test_torch_obs.py)."""
     _, po, _, _ = runs
     with pytest.raises(NotImplementedError):
-        psw.run_sweep(po, 1, [psw.SweepSpec(**kwargs)])
+        SweepService(po, **kwargs)
 
 
 def test_mesh_raises(runs):

@@ -10,6 +10,7 @@ on the card.
     python3 tools/profile_port.py serve_ssm    # the falcon-mamba-7b serve path
     python3 tools/profile_port.py serve_encdec # whisper-large-v3, prompt 448
     python3 tools/profile_port.py serve_vlm    # llama-3.2-vision-11b, prompt 2048
+    python3 tools/profile_port.py serve_timed ARCH  # prefill and decode, no profiler
     python3 tools/profile_port.py sweep_epoch  # the fused engine and K3 only
     python3 tools/profile_port.py train        # one SVRG train step only
 
@@ -470,6 +471,41 @@ def profile_serve(arch: str = "gemma3-4b", decode_steps: int = 4,
                 "num_device_alloc", 0) - allocs}), flush=True)
 
 
+def time_serve(arch: str, new_tokens: int = 32, reps: int = 3) -> None:
+    """``arch`` at full width (batch 4, bf16, prompt 448 for whisper and
+    2048 otherwise, as `chip_smoke.py`'s serve phases), no profiler: one
+    `launch.serve.run` to build and warm it, then ``reps`` times a fresh
+    session's prefill (synchronised) and ``new_tokens`` greedy decode steps
+    synchronised once at the end, as `chip_smoke.py` times them. One JSON
+    line per rep: prefill seconds, decode ms per token, decode tokens/s.
+    Runs against an older checkout too (copy this file into it)."""
+    from repro_torch.launch.serve import run
+    from repro_torch.serve.loop import ServeSession
+
+    prompt = 448 if arch == "whisper-large-v3" else 2048
+    res = run(arch, batch=4, prompt_len=prompt, new_tokens=4, device="cuda")
+    bundle, params, batch = res["bundle"], res["params"], res["batch"]
+    for rep in range(reps):
+        sess = ServeSession(bundle, params, prompt + new_tokens + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = sess.prefill(batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        t0 = time.perf_counter()
+        for _ in range(new_tokens):
+            tok = torch.argmax(sess.decode(tok), dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        print(json.dumps({"serve_timed": arch, "rep": rep, "batch": 4,
+                          "prompt": prompt, "new_tokens": new_tokens,
+                          "prefill_s": prefill_s,
+                          "decode_ms_per_token": 1e3 * decode_s / new_tokens,
+                          "decode_tokens_per_s": 4 * new_tokens / decode_s}),
+              flush=True)
+
+
 def _kinds(events, steps: int) -> dict:
     """Device ms per step summed by kernel kind (by name)."""
     from torch.autograd import DeviceType
@@ -557,6 +593,9 @@ def main(argv=None) -> int:
         return 0
     if argv == ["serve_vlm"]:
         profile_serve("llama-3.2-vision-11b")
+        return 0
+    if len(argv) == 2 and argv[0] == "serve_timed":
+        time_serve(argv[1])
         return 0
     if argv == ["train"]:
         profile_train()
