@@ -174,6 +174,7 @@ the repository beside it, the script fails before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1483,6 +1484,432 @@ def phase_service(obj):
     return rec
 
 
+# phase `objectives`: the clipped penalty of examples/nonconvex_sweep.py and
+# the MLP at benchmarks/nonconvex_frontier.py's size
+NCV_LAM, NCV_ALPHA = 1e-3, 10.0
+NCV_PLAIN_UPDATES = 2048      # K3's clipped cases against the plain version
+NCV_CPU_INNER = 512           # card vs CPU: M̃ = THREADS x 512 = 4096
+MLP_N, MLP_WIDTHS = 64, dict(vocab_size=16, seq_len=4, d_model=8, d_hidden=16)
+MLP_STEPS = (0.05, 0.1, 0.2)
+
+
+def logreg_grad_clipped_vs_plain(X, y, gen):
+    """K2 with the clipped penalty against its plain version at rcv1 with 1
+    and 4 rows (rtol 1e-5, atol 1e-6; each row bit-equal alone), timed
+    beside the plain version. Bound: the L2 case's bytes, ~7 operations per
+    coordinate for the penalty's gradient where L2 takes 2."""
+    from repro_torch.kernels.logreg_grad.ops import logreg_grad
+    from repro_torch.kernels.logreg_grad.ref import logreg_grad_ref
+
+    reg = (NCV_LAM, NCV_ALPHA)
+    n, p = X.shape
+    out = {}
+    for C in (1, 4):
+        W = 0.3 * torch.randn((C, p), generator=gen, device="cuda")
+        G, R = logreg_grad(X, y, W, reg), logreg_grad_ref(X, y, W, reg)
+        alone = all(bool(torch.equal(G[c:c + 1], logreg_grad(
+            X, y, W[c:c + 1].contiguous(), reg))) for c in range(C))
+        bnd, by = bound_ms(4 * (n * p + n + 2 * C * p),
+                           C * (4 * n * p + 6 * n + 7 * p))
+        rec = dict(kernel="logreg_grad", case=f"clipped_rcv1_{C}rows", rows=C,
+                   n=n, p=p, lam=NCV_LAM, alpha=NCV_ALPHA, rtol=1e-5,
+                   atol=1e-6, max_abs_err=float((G - R).abs().max()),
+                   allclose=bool(torch.allclose(G, R, rtol=1e-5, atol=1e-6)),
+                   batch_independent=alone,
+                   ms=median_ms(lambda: logreg_grad(X, y, W, reg), inner=10),
+                   plain_ms=median_ms(lambda: logreg_grad_ref(X, y, W, reg),
+                                      reps=5, inner=3),
+                   bound_ms=bnd, bound_by=by, library_ms=None)
+        emit(phase="objectives_kernels", **rec)
+        if not (rec["allclose"] and alone):
+            raise AssertionError(f"logreg_grad (clipped) disagrees: {rec}")
+        out[C] = rec
+    return out[1]
+
+
+def sweep_epoch_clipped_vs_plain(X, y, gen):
+    """K3 with the clipped penalty against its plain version, iterate and
+    loss in equal bits: the 4-row rcv1 AsySVRG group (the three readers and
+    serial SVRG) and one Hogwild! unlock row, `NCV_PLAIN_UPDATES` updates
+    each (the plain version steps in Python); then the 4-row group timed at
+    the main path's M̃ = 40480 beside its bound."""
+    from repro_torch import prng
+    from repro_torch.kernels.sweep_epoch.ops import sweep_epoch
+    from repro_torch.kernels.sweep_epoch.ref import sweep_epoch_ref
+
+    reg = (NCV_LAM, NCV_ALPHA)
+    n, d = X.shape
+    full = THREADS * ((2 * n) // THREADS)
+    cases = [("clipped_rcv1_asysvrg_4rows", "asysvrg", [7, 7, 7, 0],
+              [0, 1, 2, 0], [1, 1, 1, 0]),
+             ("clipped_rcv1_hogwild_unlock", "hogwild", [7], [2], [1])]
+    timed = None
+    plain_s = {}
+    for name, engine, tau, scheme, delay in cases:
+        C = len(tau)
+        w = 0.1 * torch.randn((C, d), generator=gen, device="cuda")
+        mu = 1e-3 * torch.randn((C, d), generator=gen, device="cuda")
+        keys = prng.keys_from_seeds(range(2000, 2000 + C), "cuda")
+        step = torch.full((C,), STEP_SIZE, device="cuda")
+        args = (X, y, reg, w, mu if engine == "asysvrg" else None, keys, step,
+                tau, scheme, delay)
+        kw = dict(engine=engine, total=NCV_PLAIN_UPDATES, buf_len=RING_LEN,
+                  option=2, drop_prob=DROP_PROB)
+        out, loss = sweep_epoch(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, ref_loss = sweep_epoch_ref(*args, **kw)
+        torch.cuda.synchronize()
+        plain_s[name] = time.perf_counter() - t0
+        rec = dict(kernel="sweep_epoch", case=name, rows=C, n=n, d=d,
+                   engine=engine, updates=NCV_PLAIN_UPDATES,
+                   max_abs_err=float((out - ref).abs().max()),
+                   loss_abs_err=float((loss - ref_loss).abs().max()),
+                   bits_equal=bool(torch.equal(out, ref)),
+                   loss_bits_equal=bool(torch.equal(loss, ref_loss)),
+                   finite=bool(torch.isfinite(out).all()),
+                   plain_s=plain_s[name],
+                   plain_ms_per_update=1e3 * plain_s[name] / NCV_PLAIN_UPDATES)
+        emit(phase="objectives_kernels", **rec)
+        if not (rec["bits_equal"] and rec["loss_bits_equal"] and rec["finite"]):
+            raise AssertionError(f"sweep_epoch (clipped) not bit-equal to its "
+                                 f"plain version: {rec}")
+        if engine == "asysvrg":
+            timed = (args, dict(kw, total=full), C, rec)
+    args, kw, C, checked = timed
+    ms = median_ms(lambda: sweep_epoch(*args, **kw), reps=5, inner=1)
+    # the L2 case's bytes and operations, plus ~5 operations per coordinate
+    # for each of the two gradients' penalty and ~4 d for the loss's
+    bnd, by = bound_ms(4 * (n * d + n + 3 * C * d + C),
+                       C * (25 * full * d + 2 * n * d + 4 * d))
+    rec = dict(kernel="sweep_epoch", case="clipped_rcv1_asysvrg_4rows_timed",
+               rows=C, updates=full, ms=ms, us_per_update=1e3 * ms / full,
+               plain_ms_per_update=checked["plain_ms_per_update"],
+               plain_ms_from=f"the plain version at {NCV_PLAIN_UPDATES} "
+                             "updates, per update",
+               bound_ms=bnd, bound_by=by, library_ms=None,
+               max_abs_err=checked["max_abs_err"])
+    emit(phase="objectives_kernels", **rec)
+    return rec
+
+
+def ncv_specs(n, engine_mode, inner_steps=0):
+    """The objectives phase's 5 rows over ``n`` samples: the three readers
+    and serial SVRG (one AsySVRG group of M̃ = THREADS x ``inner_steps``,
+    by default 2n) and a Hogwild! unlock row (M̃ = n rounded down to a
+    multiple of THREADS)."""
+    from repro_torch.core.sweep import SweepSpec
+
+    total = THREADS * (inner_steps or (2 * n) // THREADS)
+    specs = [SweepSpec(seed=seed, scheme=s, step_size=STEP_SIZE,
+                       num_threads=THREADS, inner_steps=inner_steps,
+                       engine_mode=engine_mode)
+             for seed, s in enumerate(("consistent", "inconsistent",
+                                       "unlock"))]
+    specs += [SweepSpec(algo="svrg", step_size=STEP_SIZE,
+                        num_threads=THREADS, inner_steps=total,
+                        engine_mode=engine_mode),
+              SweepSpec(algo="hogwild", scheme="unlock", step_size=STEP_SIZE,
+                        num_threads=THREADS, tau=-1,
+                        engine_mode=engine_mode)]
+    return specs
+
+
+def timed_sweep(obj, epochs, specs):
+    """run_sweep with the launch counts set to 0 just before and read just
+    after: (result, wall s, counts)."""
+    from repro_torch.core.sweep import run_sweep
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_sweep(obj, epochs, specs)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_counts()
+
+
+def check_finite_descent(name, hist):
+    hist = np.asarray(hist, np.float64)
+    if not (np.all(np.isfinite(hist)) and hist[-1] < hist[0]):
+        raise AssertionError(f"{name}: history not finite and descending: "
+                             f"{hist.tolist()}")
+
+
+def phase_objectives(ds):
+    """The beyond-paper objectives on the card. `NonconvexLogistic` at full
+    rcv1 (λ 1e-3, α 10): K2 and K3 with the clipped penalty against their
+    plain versions; the 5-row sweep (`ncv_specs`), 2 epochs, batched (K1
+    per update, K2 per snapshot) and fused (K2 and K3), fused rows within
+    rtol 1e-5, atol 1e-6 of the batched rows; the batched rows at M̃ =
+    4096 on the card against the CPU path (the `card_vs_cpu` limits: history
+    rtol 1e-4, w atol 1e-5). Then
+    `mlp_lm_objective(n=64)` at the frontier benchmark's widths, 3 rows and
+    2 epochs on the batched engine (K1 only), card against CPU (rtol 1e-5,
+    atol 1e-6: both compute in float64 and round once), `final_params`
+    giving the JAX tree's keys and shapes. Returns the record, the
+    nonconvex objective for phase `server`, and the kernel records."""
+    from repro_torch.core.objectives import NonconvexLogistic, mlp_lm_objective
+    from repro_torch.core.sweep import SweepSpec, run_sweep
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    X, y = ds.as_torch("cuda")
+    k2 = logreg_grad_clipped_vs_plain(X, y, gen)
+    k3 = sweep_epoch_clipped_vs_plain(X, y, gen)
+
+    ncv = NonconvexLogistic(ds.X, ds.y, lam=NCV_LAM, alpha=NCV_ALPHA)
+    batched, b_wall, b_counts = timed_sweep(ncv, RCV1_EPOCHS,
+                                            ncv_specs(ncv.n, "vmap"))
+    fused, f_wall, f_counts = timed_sweep(ncv, RCV1_EPOCHS,
+                                          ncv_specs(ncv.n, "fused"))
+    total = THREADS * ((2 * ncv.n) // THREADS)
+    # the AsySVRG and SVRG rows descend; Hogwild!'s constant step need not
+    for res, mode in ((batched, "batched"), (fused, "fused")):
+        for c, spec in enumerate(res.specs):
+            name = f"nonconvex {mode} row {c} ({spec.algo}/{spec.scheme})"
+            if spec.algo == "hogwild":
+                if not np.all(np.isfinite(res.histories[c])):
+                    raise AssertionError(f"{name}: history not finite")
+            else:
+                check_finite_descent(name, res.histories[c])
+    want_b = {"svrg_update": RCV1_EPOCHS * total, "logreg_grad": RCV1_EPOCHS,
+              "sweep_epoch": 0, "flash_attention": 0}
+    want_f = {"svrg_update": 0, "logreg_grad": RCV1_EPOCHS,
+              "sweep_epoch": 2 * RCV1_EPOCHS, "flash_attention": 0}
+    fused_close = bool(
+        np.allclose(fused.histories, batched.histories, rtol=1e-5, atol=1e-6)
+        and np.allclose(fused.final_w, batched.final_w, rtol=1e-5, atol=1e-6))
+
+    # card against the CPU path: the AsySVRG group, batched, at M̃ = 4096
+    # (the Hogwild! row's M̃ is n whatever the inner steps: left out)
+    cpu = NonconvexLogistic(ds.X, ds.y, lam=NCV_LAM, alpha=NCV_ALPHA,
+                            device="cpu")
+    short = ncv_specs(ncv.n, "vmap", inner_steps=NCV_CPU_INNER)[:4]
+    t0 = time.perf_counter()
+    r_cpu = run_sweep(cpu, 1, short)
+    cpu_s = time.perf_counter() - t0
+    r_gpu = run_sweep(ncv, 1, short)
+    cvc_gap = float(np.max(np.abs(r_gpu.histories - r_cpu.histories)
+                           / np.abs(r_cpu.histories)))
+    cvc_dw = float(np.abs(r_gpu.final_w - r_cpu.final_w).max())
+
+    # the MLP on the batched engine
+    mlp = mlp_lm_objective(MLP_N, **MLP_WIDTHS)
+    mlp_cpu = mlp_lm_objective(MLP_N, device="cpu", **MLP_WIDTHS)
+    mlp_specs = [SweepSpec(scheme="inconsistent", step_size=st, tau=2,
+                           num_threads=4, inner_steps=mlp.n, seed=i)
+                 for i, st in enumerate(MLP_STEPS)]
+    # the first float64 run on the card loads its kernels (~15 s once);
+    # timed apart, the timed run below is warm
+    t0 = time.perf_counter()
+    run_sweep(mlp, 1, mlp_specs[:1])
+    torch.cuda.synchronize()
+    mlp_first_s = time.perf_counter() - t0
+    m_res, m_wall, m_counts = timed_sweep(mlp, RCV1_EPOCHS, mlp_specs)
+    t0 = time.perf_counter()
+    m_cpu = run_sweep(mlp_cpu, RCV1_EPOCHS, mlp_specs)
+    mlp_cpu_s = time.perf_counter() - t0
+    for c in range(len(mlp_specs)):
+        check_finite_descent(f"mlp row {c}", m_res.histories[c])
+    V, D, H = (MLP_WIDTHS[k] for k in ("vocab_size", "d_model", "d_hidden"))
+    tree_shapes = {"b1": (H,), "embed": (V, D), "norm": (D,), "w1": (D, H),
+                   "w2": (H, V)}
+    params = m_res.final_params(0)
+    mlp_tree_ok = {k: tuple(v.shape) for k, v in params.items()} == tree_shapes
+    mlp_close = bool(
+        np.allclose(m_res.histories, m_cpu.histories, rtol=1e-5, atol=1e-6)
+        and np.allclose(m_res.final_w, m_cpu.final_w, rtol=1e-5, atol=1e-6))
+    mlp_total = 4 * mlp.n
+    want_m = {"svrg_update": RCV1_EPOCHS * mlp_total, "logreg_grad": 0,
+              "sweep_epoch": 0, "flash_attention": 0}
+
+    rec = dict(
+        phase="objectives", n=ncv.n, p=ncv.p, lam=NCV_LAM, alpha=NCV_ALPHA,
+        rows=len(batched.specs), epochs=RCV1_EPOCHS, inner_updates=total,
+        batched_wall_s=b_wall, batched_wall_s_per_epoch=b_wall / RCV1_EPOCHS,
+        batched_launches=b_counts, fused_wall_s=f_wall,
+        fused_wall_s_per_epoch=f_wall / RCV1_EPOCHS, fused_launches=f_counts,
+        fused_vs_batched=dict(
+            rtol=1e-5, atol=1e-6, within=fused_close,
+            max_abs_dhist=float(np.abs(fused.histories
+                                       - batched.histories).max()),
+            max_abs_dw=float(np.abs(fused.final_w - batched.final_w).max())),
+        histories_fused=fused.histories.tolist(),
+        card_vs_cpu=dict(inner_updates=THREADS * NCV_CPU_INNER, epochs=1,
+                         history_rel_gap=cvc_gap, max_abs_dw=cvc_dw,
+                         rtol_loss=1e-4, atol_w=1e-5, cpu_s=cpu_s),
+        mlp=dict(n=mlp.n, flat_dim=mlp.flat_dim, rows=len(mlp_specs),
+                 inner_updates=mlp_total, first_run_s=mlp_first_s,
+                 wall_s=m_wall,
+                 wall_s_per_epoch=m_wall / RCV1_EPOCHS, launches=m_counts,
+                 histories=m_res.histories.tolist(), cpu_s=mlp_cpu_s,
+                 card_vs_cpu_max_abs_dhist=float(np.abs(
+                     m_res.histories - m_cpu.histories).max()),
+                 card_vs_cpu_max_abs_dw=float(np.abs(
+                     m_res.final_w - m_cpu.final_w).max()),
+                 card_vs_cpu_within=mlp_close, final_params_tree=mlp_tree_ok))
+    emit(**rec)
+    if b_counts != want_b or f_counts != want_f:
+        raise AssertionError(f"objectives: nonconvex launch counts batched "
+                             f"{b_counts} != {want_b} or fused {f_counts} != "
+                             f"{want_f}")
+    if not fused_close:
+        raise AssertionError(f"objectives: fused rows outside rtol 1e-5, atol "
+                             f"1e-6 of the batched rows: "
+                             f"{rec['fused_vs_batched']}")
+    if not (cvc_gap <= 1e-4 and cvc_dw <= 1e-5):
+        raise AssertionError(f"objectives: card and CPU disagree: "
+                             f"{rec['card_vs_cpu']}")
+    if m_counts != want_m or not mlp_close or not mlp_tree_ok:
+        raise AssertionError(f"objectives: the MLP: {rec['mlp']}")
+    return rec, ncv, k2, k3
+
+
+SERVER_DELAY_MS = 200.0   # the deadline of the server phase's first flush
+
+
+def server_specs():
+    """(tenant, specs) of the server phase's size-triggered flush: 2 fused
+    L2 rows on full rcv1 (tenant-a); 1 fused + 1 batched row of the
+    registered `NonconvexLogistic` (tenant-b; the batched row's M̃ 4096)
+    and 1 fused L2 row (tenant-b), which shares tenant-a's group."""
+    from repro_torch.core.sweep import SweepSpec
+
+    logreg = [SweepSpec(seed=seed, scheme=s, step_size=STEP_SIZE,
+                        num_threads=THREADS, engine_mode="fused")
+              for seed, s in ((11, "consistent"), (12, "unlock"))]
+    ncv = [SweepSpec(seed=13, scheme="inconsistent", step_size=STEP_SIZE,
+                     num_threads=THREADS, engine_mode="fused",
+                     objective="rcv1-nonconvex"),
+           SweepSpec(seed=14, scheme="unlock", step_size=STEP_SIZE,
+                     num_threads=THREADS, inner_steps=NCV_CPU_INNER,
+                     engine_mode="vmap", objective="rcv1-nonconvex")]
+    extra = [SweepSpec(seed=18, scheme="inconsistent", step_size=STEP_SIZE,
+                       num_threads=THREADS, engine_mode="fused")]
+    return (("tenant-a", logreg), ("tenant-b", ncv), ("tenant-b", extra))
+
+
+def phase_server(obj, ncv):
+    """A `SweepServer` on 127.0.0.1 over a card-backed `SweepService`
+    (rcv1, 2 epochs), driven through the port's `SweepClient`: a lone fused
+    request flushed by the deadline, then two tenants' three requests
+    (`server_specs`: L2 logistic and the registered `NonconvexLogistic`)
+    reaching ``max_rows`` and flushed by size, the three fused L2 rows
+    coalesced into one group; each result against a
+    standalone `run_sweep` (fused rows equal bits, the batched row rtol
+    1e-5, atol 1e-6); a 3-group fused job through POST /job, one group a
+    turn, each turn resuming from the job's checkpoint, against the job in
+    one call (equal bits); /stats and /metrics answering. Flush and request
+    latency from the server's own stats."""
+    from repro_torch.core.objective import (register_objective,
+                                            unregister_objective)
+    from repro_torch.core.sweep import SweepSpec, run_sweep
+    from repro_torch.server import FairShare, FlushPolicy, SweepClient, SweepServer
+    from repro_torch.service import SweepService
+
+    register_objective("rcv1-nonconvex", ncv)
+    lone = [SweepSpec(seed=10, scheme="inconsistent", step_size=STEP_SIZE,
+                      num_threads=THREADS, engine_mode="fused")]
+    requests = server_specs()
+    job = [SweepSpec(seed=15, scheme="consistent", step_size=STEP_SIZE,
+                     num_threads=THREADS, engine_mode="fused"),
+           SweepSpec(algo="hogwild", scheme="inconsistent", seed=16,
+                     step_size=STEP_SIZE, num_threads=THREADS, tau=-1,
+                     engine_mode="fused"),
+           SweepSpec(algo="svrg", seed=17, step_size=STEP_SIZE,
+                     num_threads=THREADS, inner_steps=4096,
+                     engine_mode="fused")]
+    timeout = 300.0
+    svc = SweepService(obj, epochs=RCV1_EPOCHS)
+    rows = sum(len(s) for _, s in requests)
+    server = SweepServer(svc, policy=FlushPolicy(
+        max_rows=rows, max_delay_ms=SERVER_DELAY_MS, job_groups_per_slice=1,
+        heartbeat_stall_s=120.0), fairness=FairShare(quantum_rows=8))
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t_phase = time.perf_counter()
+        server.start()
+        client = SweepClient(server.url, timeout=timeout, poll_s=5.0)
+        t0 = time.perf_counter()
+        rid = client.submit(lone, tenant="tenant-a")
+        got_lone = client.result(rid, timeout=timeout)
+        lone_s = time.perf_counter() - t0
+        after_deadline = server.daemon.stats_snapshot()
+        server.daemon.policy = dataclasses.replace(server.daemon.policy,
+                                                   max_delay_ms=3_600_000.0)
+        t0 = time.perf_counter()
+        rids = [client.submit(specs, tenant=tenant)
+                for tenant, specs in requests]
+        got = [client.result(r, timeout=timeout) for r in rids]
+        size_s = time.perf_counter() - t0
+        daemon_stats = server.daemon.stats_snapshot()
+        handle = client.submit_job(job, RCV1_EPOCHS, tenant="tenant-c")
+        got_job = client.job_result(handle["job_id"], timeout=timeout)
+        job_stats = server.daemon.stats_snapshot()
+        stats = client.stats()
+        metrics = client.metrics()
+        health = client.healthz()
+        wall = time.perf_counter() - t_phase
+        counts = read_counts()
+        alone_lone = run_sweep(obj, RCV1_EPOCHS, lone)
+        alone = [run_sweep(None if specs[0].objective else obj, RCV1_EPOCHS,
+                           specs) for _, specs in requests]
+        alone_job = run_sweep(obj, RCV1_EPOCHS, job)
+    finally:
+        server.stop()
+        unregister_objective("rcv1-nonconvex")
+
+    def bits(a, b):
+        return bool(np.array_equal(a.histories, b.histories)
+                    and np.array_equal(a.final_w, b.final_w))
+
+    fused_equal = [bits(got_lone, alone_lone), bits(got[0], alone[0]),
+                   bits(got[2], alone[2])]
+    ncv_fused_equal = bool(
+        np.array_equal(got[1].histories[0], alone[1].histories[0])
+        and np.array_equal(got[1].final_w[0], alone[1].final_w[0]))
+    ncv_batched_close = bool(
+        np.allclose(got[1].histories[1], alone[1].histories[1], rtol=1e-5,
+                    atol=1e-6)
+        and np.allclose(got[1].final_w[1], alone[1].final_w[1], rtol=1e-5,
+                        atol=1e-6))
+    job_equal = bits(got_job, alone_job)
+    rec = dict(
+        phase="server", url_host="127.0.0.1", epochs=RCV1_EPOCHS,
+        requests=[dict(tenant=t, rows=len(s),
+                       engine_modes=[x.engine_mode for x in s],
+                       objective=s[0].objective or "rcv1")
+                  for t, s in requests],
+        wall_s=wall, lone_request_s=lone_s, size_flush_requests_s=size_s,
+        deadline_flushes=after_deadline.deadline_flushes,
+        size_flushes=daemon_stats.size_flushes - after_deadline.size_flushes,
+        job_slices=job_stats.job_slices, jobs_completed=job_stats.jobs_completed,
+        launches=counts, fused_bits_equal_alone=fused_equal,
+        nonconvex_fused_bits_equal_alone=ncv_fused_equal,
+        nonconvex_batched_within_tol_alone=ncv_batched_close,
+        job_equals_one_call=job_equal,
+        flush_latency=stats["flush_latency"],
+        request_latency=stats["request_latency"],
+        rows_coalesced=stats["service"]["rows_coalesced"],
+        stats_policy=stats["daemon"]["policy"],
+        metrics_lines=len(metrics.splitlines()), health=health["status"])
+    emit(**rec)
+    if rec["deadline_flushes"] < 1 or rec["size_flushes"] < 1:
+        raise AssertionError(f"server: a flush trigger did not fire: {rec}")
+    if not (all(fused_equal) and ncv_fused_equal and ncv_batched_close
+            and rec["rows_coalesced"] >= 3):
+        raise AssertionError(f"server: served results differ from "
+                             f"standalone run_sweep: {rec}")
+    if not (job_equal and rec["job_slices"] == 3 and rec["jobs_completed"]):
+        raise AssertionError(f"server: the time-sliced job: {rec}")
+    if not (counts["logreg_grad"] and counts["sweep_epoch"]
+            and counts["svrg_update"]) or counts["flash_attention"]:
+        raise AssertionError(f"server: launches {counts}")
+    if health["status"] != "ok" or rec["metrics_lines"] < 10:
+        raise AssertionError(f"server: /healthz or /metrics: {rec}")
+    return rec
+
+
 def greedy_steps(bundle, params, batch, cache_len: int, new_tokens: int):
     """The serve session stepped by hand, greedy: (prefill logits, each
     decode's logits, the tokens [B, new_tokens], the final cache), nothing
@@ -2744,6 +3171,15 @@ def main() -> int:
     emit(phase="service_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    objectives, ncv, k2_clipped, k3_clipped = phase_objectives(ds)
+    emit(phase="objectives_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    server = phase_server(obj, ncv)
+    del ncv
+    emit(phase="server_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     serve_counts = phase_serve(report)
     emit(phase="serve_done", seconds=time.perf_counter() - t0)
 
@@ -2876,6 +3312,21 @@ def main() -> int:
     for i, name in ((1, "logreg_grad"), (2, "sweep_epoch")):
         kernels[i]["service_launches_per_flush"] = \
             service["first_flush"]["launches"][name]
+    # K2 and K3 with the clipped penalty (NonconvexLogistic, phase
+    # `objectives`): each against its plain version, timed at the L2 case's
+    # shape beside its own bound; launches in the fused 5-row sweep, and in
+    # the server phase
+    for i, name, rec in ((1, "logreg_grad", k2_clipped),
+                         (2, "sweep_epoch", k3_clipped)):
+        kernels[i].update({f"clipped_{key}": rec[key] for key in (
+            "ms", "bound_ms", "bound_by", "max_abs_err") if key in rec})
+        kernels[i]["clipped_launches"] = \
+            objectives["fused_launches"][name]
+        kernels[i]["server_launches"] = server["launches"][name]
+    kernels[1]["clipped_plain_ms"] = k2_clipped["plain_ms"]
+    kernels[2]["clipped_us_per_update"] = k3_clipped["us_per_update"]
+    kernels[2]["clipped_plain_ms_per_update"] = \
+        k3_clipped["plain_ms_per_update"]
     # K4 on the deepseek-moe-16b serve path too: launches per prefill, and
     # its time at that shape beside SDPA and the bound
     moe_k4 = report["flash_attention"]["moe"]

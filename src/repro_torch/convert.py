@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.distributed import SVRGState
-from repro_torch.core.objective import LogisticRegression
+from repro_torch.core.objective import LogisticRegression, Objective
+from repro_torch.core.objectives import MLPObjective, NonconvexLogistic
 from repro_torch.train.state import TrainState
 
 
@@ -31,11 +32,30 @@ def to_params(w, device, param_shapes=()) -> torch.Tensor:
     return torch.as_tensor(np.asarray(w, np.float32), device=device)
 
 
-def to_objective(source, device, l2_reg=None) -> LogisticRegression:
-    """A port `LogisticRegression` from a dataset (anything with ``X``,
-    ``y`` and ``l2_reg``, such as either package's `LogRegDataset`), a JAX
-    `LogisticRegression` (``X``, ``y``, ``l2``), or an ``(X, y, l2)``
-    tuple. ``l2_reg`` overrides the source's λ."""
+def to_objective(source, device, l2_reg=None) -> Objective:
+    """A port objective from the JAX package's, or from a dataset:
+
+    * a JAX `MLPObjective` (``tokens``, ``targets``, ``vocab_size``, ...):
+      the port's `MLPObjective` with the same corpus, widths, activation
+      and init seed and scale;
+    * a JAX `NonconvexLogistic` (``X``, ``y``, ``lam``, ``alpha``): the
+      port's, with the same data and constants;
+    * a dataset (anything with ``X``, ``y`` and ``l2_reg``, such as either
+      package's `LogRegDataset`), a JAX `LogisticRegression` (``X``, ``y``,
+      ``l2``), or an ``(X, y, l2)`` tuple: a `LogisticRegression`;
+      ``l2_reg`` overrides the source's λ."""
+    if hasattr(source, "tokens"):
+        return MLPObjective(np.asarray(source.tokens), np.asarray(source.targets),
+                            source.vocab_size, d_model=source.d_model,
+                            d_hidden=source.d_hidden,
+                            activation=source.activation,
+                            init_seed=source.init_seed,
+                            init_scale=source.init_scale, device=device)
+    if hasattr(source, "alpha"):
+        return NonconvexLogistic(np.array(source.X, np.float32),
+                                 np.array(source.y, np.float32),
+                                 lam=source.lam, alpha=source.alpha,
+                                 device=device)
     if isinstance(source, tuple):
         X, y, l2 = source
     else:

@@ -2,8 +2,14 @@ from repro_torch.core.objective import (
     LogisticRegression,
     Objective,
     get_objective,
+    params_from_flat,
     register_objective,
     registered_objectives,
+)
+from repro_torch.core.objectives import (
+    MLPObjective,
+    NonconvexLogistic,
+    mlp_lm_objective,
 )
 from repro_torch.core.svrg import svrg_epoch, run_svrg, sweep_spec as svrg_sweep_spec
 from repro_torch.core.asysvrg import (
@@ -29,6 +35,10 @@ __all__ = [
     "register_objective",
     "get_objective",
     "registered_objectives",
+    "params_from_flat",
+    "MLPObjective",
+    "NonconvexLogistic",
+    "mlp_lm_objective",
     "svrg_epoch",
     "run_svrg",
     "svrg_sweep_spec",

@@ -8,16 +8,19 @@ The port of `repro.core.objective`. The engines (`repro_torch.core.asysvrg`
 :class:`Objective`, with params as a flat vector — or, for the batched
 sweep engine, a ``[C, d]`` block of rows. Every math method therefore takes
 ``w`` with any leading batch shape and treats rows independently: a row's
-result never depends on the other rows it is computed with.
+result never depends on the other rows it is computed with. Params may be
+a pytree (a nested dict of same-dtype tensors, the MLP's); the flat vector
+is its leaves in the JAX package's tree order (`repro_torch.utils.tree`),
+so a flat row means the same tree in both packages.
 
 The snapshot gradient goes through the ``logreg_grad`` kernel
 (`repro_torch.kernels.logreg_grad`), which on CPU tensors runs its plain
 version. Margins and sums to a scalar are taken in float64 and rounded
 once, so they do not depend on summation order: the card, the CPU and any
-batch agree on them to within float64 rounding.
-
-Only bare-vector params exist in this slice; pytree params arrive with the
-MLP objective.
+batch agree on them to within float64 rounding. The logistic functions take
+the penalty as ``reg`` (`repro_torch.kernels.regularizer`): a float λ for
+the L2 term, ``(lam, alpha)`` for `NonconvexLogistic`'s clipped one
+(`repro_torch.core.objectives`).
 """
 from __future__ import annotations
 
@@ -27,7 +30,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import regularizer
 from repro_torch.kernels.logreg_grad.ops import logreg_grad
+from repro_torch.utils.tree import (tree_flatten_with_path, tree_leaves,
+                                    tree_map, tree_ravel, tree_unravel_fn)
 
 
 def default_device(device=None) -> torch.device:
@@ -55,33 +61,28 @@ def _log1pexp(z):
     return torch.logaddexp(torch.zeros_like(z), z)
 
 
-def _exact_sum(v):
-    """Σ over the last axis, accumulated in float64 and rounded once to
-    ``v.dtype`` — order-independent to within float64 rounding."""
-    return torch.sum(v.to(torch.float64), dim=-1).to(v.dtype)
-
-
 def _margins_stable(X, y, w):
     """y ⊙ (X w) as a broadcast-multiply + row-reduce summed in float64;
     ``w`` [..., p] → [..., n] float64."""
     return y * torch.sum(X * w[..., None, :], dim=-1, dtype=torch.float64)
 
 
-def loss_fixed_order(X, y, l2: float, w):
-    """f(w) for ``w`` [..., p] → [...]; order-independent sums."""
+def loss_fixed_order(X, y, reg, w):
+    """f(w) for ``w`` [..., p] → [...]; order-independent sums. ``reg``: a
+    float λ (L2) or ``(lam, alpha)`` (clipped)."""
     t = _log1pexp(-_margins_stable(X, y, w))
     n = X.shape[0]
-    return (torch.sum(t, dim=-1) / n).to(w.dtype) + 0.5 * l2 * _exact_sum(w * w)
+    return (torch.sum(t, dim=-1) / n).to(w.dtype) + regularizer.value(reg, w)
 
 
-def full_grad_stable(X, y, l2: float, w):
+def full_grad_stable(X, y, reg, w):
     """∇f(w) for ``w`` [p] or [C, p] — through the ``logreg_grad`` kernel."""
     if w.dim() == 1:
-        return logreg_grad(X, y, w[None, :], l2)[0]
-    return logreg_grad(X, y, w, l2)
+        return logreg_grad(X, y, w[None, :], reg)[0]
+    return logreg_grad(X, y, w, reg)
 
 
-def sample_grad_stable(X, y, l2: float, w, i):
+def sample_grad_stable(X, y, reg, w, i):
     """∇f_i(w). ``i`` is an index tensor of shape ``[*lead]`` and ``w``
     broadcasts against ``[*lead, p]``: ``i`` [C] with ``w`` [C, p] is one
     sample per row; ``i`` [L, C] with ``w`` [C, p] is L samples per row.
@@ -93,7 +94,7 @@ def sample_grad_stable(X, y, l2: float, w, i):
     yi = y[i]
     z = torch.sum(x * w, dim=-1, dtype=torch.float64)
     s = torch.sigmoid(-yi * z).to(torch.float32)
-    return (-yi * s)[..., None] * x + l2 * w
+    return (-yi * s)[..., None] * x + regularizer.grad(reg, w)
 
 
 # ---------------------------------------------------------------------------
@@ -101,21 +102,24 @@ def sample_grad_stable(X, y, l2: float, w, i):
 # ---------------------------------------------------------------------------
 
 class Objective:
-    """Base class for pluggable objectives (flat params in this slice).
+    """Base class for pluggable objectives: pytree params, per-sample grads.
 
     A subclass provides the PURE pieces, which receive ``data`` (the tuple
     `data_args` returns) as an argument:
 
       * ``n`` — number of samples (set in ``__init__``);
       * :meth:`data_args` — tuple of tensors/scalars the engines pass down;
-      * :meth:`init_params` — the w₀ vector;
+      * :meth:`init_params` — the w₀ vector, or a nested dict of same-dtype
+        tensors;
       * :meth:`loss_fixed_order(data, w)` — f(w);
       * :meth:`full_grad_stable(data, w)` — ∇f(w);
       * :meth:`sample_grad_stable(data, i, w)` — ∇f_i(w);
       * :meth:`static_key` — hashable tuple of the static config.
 
-    The base supplies the flat adapters the engine calls, fingerprinting
-    for group keys, and `param_shapes` metadata.
+    The base supplies the flat adapters the engine calls (for a pytree
+    objective they unravel the flat rows; objectives whose params are a
+    flat vector, or that compute on the flat rows themselves, override
+    them), fingerprinting for group keys, and `param_shapes` metadata.
     """
 
     n: int
@@ -139,11 +143,19 @@ class Objective:
     def static_key(self) -> Tuple:
         return ()
 
-    # -- sizing -------------------------------------------------------------
+    # -- sizing / template (cached: shapes are static per instance) ---------
+    @property
+    def _template(self):
+        tpl = getattr(self, "_template_cache", None)
+        if tpl is None:
+            tpl = self.init_params()
+            self._template_cache = tpl
+        return tpl
+
     @property
     def flat_dim(self) -> int:
         """Total parameter count — the engine's per-row vector width."""
-        return int(self.init_params().numel())
+        return int(sum(x.numel() for x in tree_leaves(self._template)))
 
     @property
     def device(self) -> torch.device:
@@ -153,9 +165,26 @@ class Objective:
         """n, from the runtime data (the first data arg is sample-leading)."""
         return data[0].shape[0]
 
-    # -- flat params ----------------------------------------------------------
+    # -- flat <-> pytree bridge ---------------------------------------------
+    def ravel_params(self, tree):
+        return tree_ravel(tree)
+
+    def unravel_params(self, flat):
+        """The param tree of flat params ``[..., flat_dim]`` (each leaf
+        ``[..., *shape]``)."""
+        fn = getattr(self, "_unravel_cache", None)
+        if fn is None:
+            fn = tree_unravel_fn(self._template)
+            self._unravel_cache = fn
+        return fn(flat)
+
     def as_flat(self, w):
-        """Params as a flat float32 vector on the objective's device."""
+        """Params — a pytree like `init_params`' or an already-flat vector —
+        as a flat float32 vector on the objective's device."""
+        if isinstance(w, dict):
+            w = tree_ravel(tree_map(
+                lambda v: v if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v)), w))
         w = torch.as_tensor(w, dtype=torch.float32, device=self.device)
         if w.dim() != 1 or w.shape[0] != self.flat_dim:
             raise ValueError(
@@ -164,17 +193,19 @@ class Objective:
         return w
 
     def init_flat(self):
-        return self.as_flat(self.init_params())
+        return self.as_flat(self.ravel_params(self.init_params()))
 
     # -- engine-facing flat adapters ----------------------------------------
     def flat_loss(self, data, w_flat):
-        return self.loss_fixed_order(data, w_flat)
+        return self.loss_fixed_order(data, self.unravel_params(w_flat))
 
     def flat_full_grad(self, data, w_flat):
-        return self.full_grad_stable(data, w_flat)
+        return self.ravel_params(
+            self.full_grad_stable(data, self.unravel_params(w_flat)))
 
     def flat_sample_grad(self, data, i, w_flat):
-        return self.sample_grad_stable(data, i, w_flat)
+        return self.ravel_params(
+            self.sample_grad_stable(data, i, self.unravel_params(w_flat)))
 
     # -- serial-driver conveniences -------------------------------------------
     def loss(self, w):
@@ -209,9 +240,42 @@ class Objective:
         return fp
 
     def param_shapes(self) -> Tuple:
-        """((path, shape, dtype),) of the bare param vector."""
-        w = self.init_params()
-        return (("", tuple(w.shape), str(w.dtype).replace("torch.", "")),)
+        """Serializable ((path, shape, dtype), ...) of the param tree, as the
+        JAX package writes it: a bare vector is ``(("", shape, dtype),)``,
+        dict trees use "/"-joined key paths in sorted key order; dtypes by
+        name ("float32")."""
+        return tuple((path, tuple(leaf.shape),
+                      str(leaf.dtype).replace("torch.", ""))
+                     for path, leaf in tree_flatten_with_path(self._template))
+
+
+def params_from_flat(flat: np.ndarray, param_shapes):
+    """Rebuild a param pytree from a flat vector + `Objective.param_shapes`
+    metadata (numpy-side; the wire format's consumer). A single unnamed
+    leaf comes back as the bare (reshaped) array; named leaves as a nested
+    dict."""
+    if not param_shapes:
+        return flat
+    arrays = []
+    off = 0
+    for _, shape, dtype in param_shapes:
+        size = int(np.prod(shape)) if shape else 1
+        arrays.append(np.asarray(flat[off:off + size], dtype)
+                      .reshape(tuple(shape)))
+        off += size
+    if off != len(flat):
+        raise ValueError(f"param_shapes cover {off} entries, flat vector "
+                         f"has {len(flat)}")
+    if len(param_shapes) == 1 and param_shapes[0][0] == "":
+        return arrays[0]
+    tree: Dict = {}
+    for (path, _, _), arr in zip(param_shapes, arrays):
+        node = tree
+        keys = path.split("/")
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = arr
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +350,11 @@ class LogisticRegression(Objective):
         X, y, l2 = data
         return sample_grad_stable(X, y, l2, w, i)
 
+    # flat == pytree for a (p,) parameter vector: skip the generic bridge
+    flat_loss = loss_fixed_order
+    flat_full_grad = full_grad_stable
+    flat_sample_grad = sample_grad_stable
+
     # -- the paper's partitioned snapshot pass --------------------------------
     def partial_full_grad(self, w, lo: int, size: int):
         """One thread's UN-normalized gradient sum over rows [lo, lo+size);
@@ -294,3 +363,34 @@ class LogisticRegression(Objective):
         ys = self.y[lo:lo + size]
         s = torch.sigmoid(-_margins_stable(Xs, ys, w)).to(torch.float32)
         return torch.sum((-(ys * s))[:, None] * Xs, dim=0)
+
+    def minibatch_grad(self, w, idx):
+        """Mean gradient over a batch of sample indices ``idx`` (beyond-paper
+        batching), by matmuls as the JAX package computes it."""
+        Xb, yb = self.X[idx], self.y[idx]
+        s = torch.sigmoid(-yb * (Xb @ w))
+        return (-(yb * s) @ Xb) / idx.shape[0] + self.l2 * w
+
+    # -- constants for the theory-facing tests ------------------------------
+    def smoothness(self) -> float:
+        """L = max_i ‖x_i‖² / 4 + λ (float32, as the JAX package)."""
+        row_sq = torch.sum(self.X * self.X, dim=1)
+        return float(torch.max(row_sq) / 4.0 + self.l2)
+
+    def strong_convexity(self) -> float:
+        return self.l2
+
+    def optimum(self, tol: float = 1e-12, max_iter: int = 5000):
+        """High-accuracy reference optimum by deterministic gradient descent
+        with the fixed step 1/L (the paper's "gap < 1e-4" metric is measured
+        against it): ``(w*, f(w*))``. Each step's gradient is the matmul
+        form of the JAX package's ``full_grad``, on the objective's
+        device; ``tol`` is accepted for the JAX package's signature."""
+        del tol
+        step = 1.0 / self.smoothness()
+        w = torch.zeros(self.p, dtype=torch.float32, device=self.X.device)
+        for _ in range(max_iter):
+            s = torch.sigmoid(-(self.y * (self.X @ w)))
+            g = (-(self.y * s) @ self.X) / self.n + self.l2 * w
+            w = w - step * g
+        return w, float(self.loss(w))

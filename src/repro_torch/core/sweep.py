@@ -16,7 +16,9 @@ row's τ, scheme, delay kind, step size and epoch budget as data.
     (`repro_torch.kernels.sweep_epoch`): per epoch one ``logreg_grad``
     launch for the rows' snapshots (AsySVRG groups) and ONE
     ``sweep_epoch`` launch for every inner update of every row.
-    `LogisticRegression` only.
+    `LogisticRegression` and `NonconvexLogistic` (the kernels take the L2
+    or the clipped penalty); an `MLPObjective` raises, its per-sample
+    gradient is not in the kernel's update chain.
 
 ``""`` inherits `default_engine_mode()`: ``$REPRO_SWEEP_ENGINE``, else
 "vmap", as in the JAX package.
@@ -48,10 +50,9 @@ Every group runs through the persistent runner cache
 each runner call is bracketed on the host by the tracer's ``execute`` span
 and the performance ledger (`repro_torch.obs`), both opt-in.
 
-Not in this slice, each raising `NotImplementedError`: a ``mesh``
-(multi-GPU row sharding) and fused mode for an objective other than
-`LogisticRegression` (the objectives slice). Neither falls back to another
-path.
+Not ported yet, each raising `NotImplementedError`: a ``mesh`` (multi-GPU
+row sharding) and fused mode for an objective the kernels do not compute
+(the MLP). Neither falls back to another path.
 """
 from __future__ import annotations
 
@@ -72,7 +73,9 @@ from repro_torch.core.asysvrg import (
     _resolve_steps,
 )
 from repro_torch.core.hogwild import _hogwild_epochs_core, _resolve_hogwild_steps
-from repro_torch.core.objective import LogisticRegression, Objective, get_objective
+from repro_torch.core.objective import (LogisticRegression, Objective,
+                                        get_objective, params_from_flat)
+from repro_torch.core.objectives import NonconvexLogistic
 from repro_torch.kernels.dispatch import mode_tags
 from repro_torch.kernels.sweep_epoch import fused_group_fn
 from repro_torch.obs import ledger as _ledger
@@ -174,6 +177,14 @@ class SweepResult(NamedTuple):
         """(effective_passes, loss history) trimmed to row c's own budget."""
         e = int(self.epochs_per_row[c])
         return self.effective_passes[c, :e + 1], self.histories[c, :e + 1]
+
+    def final_params(self, c: int):
+        """Row c's final iterate in the objective's PYTREE form (numpy),
+        rebuilt exactly from the flat row via the recorded ``param_shapes``
+        (flat-vector objectives get the row back unchanged)."""
+        if not self.param_shapes:
+            return self.final_w[c]
+        return params_from_flat(self.final_w[c], self.param_shapes)
 
     def row(self, c: int) -> Dict:
         """One config as a flat record (for CSV-ish reporting)."""
@@ -311,6 +322,10 @@ def _executed_spec(spec: SweepSpec, r: _Resolved) -> SweepSpec:
                                engine_mode="fused" if r.fused else "vmap")
 
 
+# the objectives whose math the fused kernels compute (their data is
+# (X, y, *penalty), `kernels.sweep_epoch.fused_group_fn`)
+_FUSED_OBJECTIVES = (LogisticRegression, NonconvexLogistic)
+
 # (objective fingerprint, engine, M̃, option, buf_len, fused)
 _GroupKey = Tuple[int, str, int, int, int, bool]
 
@@ -358,11 +373,14 @@ def plan_sweep(obj: Optional[Objective], epochs: int,
     obj = _resolve_objective(obj, specs)
     ofp = obj.fingerprint()
     resolved = tuple(_resolve(obj, s, epochs) for s in specs)
-    if any(r.fused for r in resolved) and type(obj) is not LogisticRegression:
+    if any(r.fused for r in resolved) and type(obj) not in _FUSED_OBJECTIVES:
         raise NotImplementedError(
-            f"engine_mode='fused' runs LogisticRegression only, not "
-            f"{type(obj).__name__}; other objectives in fused mode come with "
-            "the objectives slice of the port — use engine_mode='vmap'")
+            f"engine_mode='fused' runs LogisticRegression and "
+            f"NonconvexLogistic, not {type(obj).__name__}: the sweep-epoch "
+            "kernel computes the logistic sample gradient with an L2 or a "
+            "clipped penalty, and another objective's per-sample gradient "
+            "inside its update chain is not ported yet — use "
+            "engine_mode='vmap'")
     specs = tuple(_executed_spec(s, r) for s, r in zip(specs, resolved))
     groups: Dict[_GroupKey, List[int]] = {}
     for c, r in enumerate(resolved):

@@ -2,7 +2,12 @@
 //
 //     z[c, r] = X[r, :] . W[c, :]
 //     s[c, r] = -y[r] * sigmoid(-y[r] * z[c, r]) / n
-//     G[c, :] = sum_r s[c, r] * X[r, :] + l2 * W[c, :]
+//     G[c, :] = sum_r s[c, r] * X[r, :] + R'(W[c, :])
+//
+// with R' the gradient of the penalty (kernels/regularizer.py): L2, l2 * w; or the clipped
+// penalty of NonconvexLogistic, (c * w) / (den * den) with c = (2 lam) alpha and
+// den = 1 + (alpha w) w, in explicitly rounded float32 steps in that order (~5 flops per
+// coordinate, no extra bytes).
 //
 // Replaces the two TPU kernels of src/repro/kernels/logreg_grad/kernel.py:
 // `_margin_kernel` (launched by `margins`) and `_grad_kernel` (launched by
@@ -47,7 +52,7 @@
 //     over X each; the copies of the next chunk's stripes start during the
 //     last stripes of the one before.
 //   * A second, small launch sums the blocks' partials in a fixed order and
-//     adds l2 * W. So two launches, and one pass over X per chunk.
+//     adds the penalty's gradient. So two launches, and one pass over X per chunk.
 // Rows wider than kMaxWidth (no dataset of the port has them: rcv1 2048,
 // news20 4096) do not fit on chip: they take two passes over X (a warp per
 // row for the margins, then partial column sums of kWideRows rows), then
@@ -306,10 +311,12 @@ __global__ void __launch_bounds__(kThreads, 1) one_pass_kernel(Params a) {
 }
 
 // G[c, j] = sum over blocks b of partial[b, c, j] (lanes of 16 blocks in
-// order, then the 16 lanes in order) + l2 * W[c, j]
+// order, then the 16 lanes in order) + the penalty's gradient at W[c, j]: l2 * W[c, j]
+// (reg 0), or the clipped penalty's (reg 1) with lam and alpha
 __global__ void sum_partials_kernel(const float* __restrict__ partial,
                                     const float* __restrict__ W, float* __restrict__ G,
-                                    int blocks, int p, int C, float l2) {
+                                    int blocks, int p, int C, int reg, float lam,
+                                    float alpha) {
   __shared__ float lanes[kSumLanes][kSumCols + 1];
   const int jl = threadIdx.x % kSumCols, bl = threadIdx.x / kSumCols;
   const int c = blockIdx.y, j = blockIdx.x * kSumCols + jl;
@@ -323,7 +330,14 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   if (bl == 0 && j < p) {
     float sum = 0.0f;
     for (int q = 0; q < kSumLanes; ++q) sum += lanes[q][jl];
-    G[at] = sum + l2 * W[at];
+    const float w = W[at];
+    if (reg == 0) {
+      G[at] = sum + lam * w;
+    } else {
+      const float coef = __fmul_rn(__fmul_rn(2.0f, lam), alpha);
+      const float den = __fadd_rn(1.0f, __fmul_rn(__fmul_rn(alpha, w), w));
+      G[at] = __fadd_rn(sum, __fdiv_rn(__fmul_rn(coef, w), __fmul_rn(den, den)));
+    }
   }
 }
 
@@ -420,13 +434,14 @@ extern "C" long long logreg_grad_scratch_floats(long long n, long long p, long l
   return make_plan(n, p).blocks * C * p;
 }
 
-// X [n, p], y [n], W [C, p], G [C, p]: contiguous float32 on one device.
+// X [n, p], y [n], W [C, p], G [C, p]: contiguous float32 on one device. reg 0: the L2
+// penalty with weight lam (alpha unused); reg 1: the clipped penalty with lam and alpha.
 // Returns the first CUDA error code of the launches (0 = success).
 extern "C" int logreg_grad_launch(const float* X, const float* y, const float* W,
                                   float* scratch, float* G, long long n, long long p,
-                                  long long C, float l2, void* stream) {
+                                  long long C, int reg, float lam, float alpha, void* stream) {
   if (n <= 0 || p <= 0 || C <= 0 || n > 2147483647LL || p > 2147483647LL ||
-      C > 65535) {
+      C > 65535 || reg < 0 || reg > 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -462,6 +477,6 @@ extern "C" int logreg_grad_launch(const float* X, const float* y, const float* W
   if (err != 0) return err;
   dim3 grid((unsigned)((p + kSumCols - 1) / kSumCols), (unsigned)C);
   sum_partials_kernel<<<grid, kSumCols * kSumLanes, 0, st>>>(partial, W, G, blocks, (int)p,
-                                                             (int)C, l2);
+                                                             (int)C, reg, lam, alpha);
   return (int)cudaGetLastError();
 }

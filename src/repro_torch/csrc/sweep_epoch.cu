@@ -17,10 +17,14 @@
 //   u_read[j] = ring[slot_j][j], slot_j from the row's reader (consistent / inconsistent /
 //               unlock) with the row's own tau: slot = age mod (tau + 1)
 //   g = grad f_i(u_read); AsySVRG: v = (g - g0) + mu with g0 = grad f_i(u0); Hogwild!: v = g
+//   grad f_i(w) = -y_i sigmoid(-y_i x_i . w) x_i + R'(w), R' the penalty's gradient
+//   (kernels/regularizer.py): L2, l2 * w; clipped (NonconvexLogistic), (c w) / (den den) with
+//   c = (2 lam) alpha, den = 1 + (alpha w) w
 //   unlock rows with drop_prob > 0: g, g0 and mu masked by bernoulli(k_drop, 1 - drop_prob)
 //   u_{m+1} = u_m - step * v, written to ring slot (m + 1) mod (tau + 1); acc += u_{m+1}
 // and the row's result w' is u_total (option 1, Hogwild!) or acc / total (option 2), and its
-// loss f(w') = (1/n) sum_r log(1 + exp(-y_r x_r . w')) + (l2 / 2) ||w'||^2.
+// loss f(w') = (1/n) sum_r log(1 + exp(-y_r x_r . w')) + R(w'), R = (l2 / 2) ||w'||^2 or
+// lam sum_j aw2_j / (1 + aw2_j) with aw2 = (alpha w') w'.
 // Randomness is threefry2x32 in JAX's partitionable mode, bit-equal to
 // src/repro_torch/prng.py, so a seed draws the same samples here, in the batched engine and
 // in the JAX package.
@@ -28,7 +32,8 @@
 // Bound on this card: operations, for one launch. Each input read once (X, y, every row's w
 // and mu) and each output written once: at rcv1 (n = 20242, d = 2048) with 4 rows ~166 MB,
 // ~0.05 ms at 3.35 TB/s; ~15 d float32 operations per row and update plus ~2 n d per row for
-// the loss, ~5.3 GFLOP, ~0.08 ms at 67 TFLOP/s. The kernel sits far above both: it is a chain
+// the loss, ~5.3 GFLOP, ~0.08 ms at 67 TFLOP/s; the clipped penalty adds ~5 d per gradient,
+// two gradients per AsySVRG update, and no bytes. The kernel sits far above both: it is a chain
 // of `total` dependent updates per row, each ending in two block-wide float64 dot products
 // and a barrier, on C of the 132 SMs. What the design takes off that chain is everything that
 // does not depend on the previous update.
@@ -78,7 +83,8 @@
 //     order depends on d alone, so a row's result never depends on its group (bit-equal alone
 //     and in a group, by construction), nor on the placement.
 //   * Elementwise float32 math with explicit round-to-nearest intrinsics, no fused
-//     multiply-add, in the order of the plain version (kernels/sweep_epoch/ref.py).
+//     multiply-add, in the order of the plain version (kernels/sweep_epoch/ref.py), for the
+//     penalty too: its kind is a launch argument, one branch uniform over the block.
 //   * The loss, in two more kernels of the same launch call, over every SM: one SM streams X
 //     at only ~27 GB/s (6 ms at rcv1), so the row's own block does not take it. A warp per
 //     sample writes log(1 + exp(-y_r x_r . w'_c)) for every row c (float32 products, float64
@@ -254,8 +260,18 @@ struct Params {
   float* out;
   int d, C, total, buf_len, option, drop;
   uint32_t span, mult;
-  float l2, keep_p;
+  int reg;           // 0: L2 with weight lam; 1: clipped with lam and alpha
+  float lam, alpha;  // the penalty's float32 constants
+  float coef;        // (2 lam) alpha, the clipped gradient's constant
+  float keep_p;
 };
+
+// The penalty's gradient at w, as kernels/regularizer.py's `grad` computes it.
+__device__ __forceinline__ float penalty_grad(const Params& p, float w) {
+  if (p.reg == 0) return __fmul_rn(p.lam, w);
+  const float den = __fadd_rn(1.0f, __fmul_rn(__fmul_rn(p.alpha, w), w));
+  return __fdiv_rn(__fmul_rn(p.coef, w), __fmul_rn(den, den));
+}
 
 // The producer warp: steps 0 .. total - 1 into the queue, and with kStaged their rows of X into
 // the stages.
@@ -380,11 +396,11 @@ __global__ void __launch_bounds__(kMaxThreads + 32) sweep_epoch_kernel(Params p)
     for (int j = tid; j < d; j += T) {
       const float xj = kStaged ? x[j] : __ldg(x + j);
       const float u = ring[(size_t)cur * d + j];
-      float g = __fadd_rn(__fmul_rn(coef, xj), __fmul_rn(p.l2, ur[j]));
+      float g = __fadd_rn(__fmul_rn(coef, xj), penalty_grad(p, ur[j]));
       const float keep = masked && !(uniform_at(e.drop, (uint32_t)j) < p.keep_p) ? 0.0f : 1.0f;
       float un;
       if (kSvrg) {
-        float g0 = __fadd_rn(__fmul_rn(coef0, xj), __fmul_rn(p.l2, u0[j]));
+        float g0 = __fadd_rn(__fmul_rn(coef0, xj), penalty_grad(p, u0[j]));
         float gf = mu[j];
         if (masked) {
           g = __fmul_rn(g, keep);
@@ -432,18 +448,24 @@ __global__ void __launch_bounds__(kLossThreads)
   }
 }
 
-// Loss, pass 2: one block per row sums its n terms and ||W[c]||^2 in float64 (threads in
-// stride order, then warps in order) and rounds once, as objective.loss_fixed_order does.
+// Loss, pass 2: one block per row sums its n terms and the penalty's terms (w^2 for L2,
+// aw2 / (1 + aw2) for the clipped penalty) in float64 (threads in stride order, then warps
+// in order) and rounds once, as objective.loss_fixed_order does.
 __global__ void __launch_bounds__(kLossThreads)
     loss_sum_kernel(const double* __restrict__ t, const float* __restrict__ W,
-                    float* __restrict__ loss, int n, int d, float l2) {
+                    float* __restrict__ loss, int n, int d, int reg, float lam, float alpha) {
   __shared__ double part[2][kLossThreads / 32];
   const int c = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   double s = 0.0, q = 0.0;
   for (int r = tid; r < n; r += kLossThreads) s += t[(size_t)c * n + r];
   for (int j = tid; j < d; j += kLossThreads) {
     const float wj = W[(size_t)c * d + j];
-    q += (double)__fmul_rn(wj, wj);
+    if (reg == 0) {
+      q += (double)__fmul_rn(wj, wj);
+    } else {
+      const float aw2 = __fmul_rn(__fmul_rn(alpha, wj), wj);
+      q += (double)__fdiv_rn(aw2, __fadd_rn(1.0f, aw2));
+    }
   }
   s = warp_sum(s);
   q = warp_sum(q);
@@ -458,7 +480,8 @@ __global__ void __launch_bounds__(kLossThreads)
       sum += part[0][k];
       sumsq += part[1][k];
     }
-    loss[c] = __fadd_rn((float)(sum / (double)n), __fmul_rn(0.5f * l2, (float)sumsq));
+    const float scale = reg == 0 ? 0.5f * lam : lam;
+    loss[c] = __fadd_rn((float)(sum / (double)n), __fmul_rn(scale, (float)sumsq));
   }
 }
 
@@ -527,22 +550,27 @@ extern "C" long long sweep_epoch_max_shared_bytes(int device) {
 // ring [C, buf_len, d] or null, out [C, d], terms [C, n] float64 scratch, loss [C]:
 // contiguous, on one device. engine: 0 = AsySVRG, 1 = Hogwild!; staged: 1 = rows of X through
 // shared-memory stages, 0 = through L2 prefetches; smem_bytes: the caller's size of the dynamic
-// shared memory, which must equal this file's layout. Returns the first CUDA error code of the three launches (0 = success).
+// shared memory, which must equal this file's layout; reg 0: the L2 penalty with weight lam
+// (alpha unused), reg 1: the clipped penalty with lam and alpha. Returns the first CUDA error
+// code of the three launches (0 = success).
 extern "C" int sweep_epoch_launch(const float* X, const float* y, const float* w, const float* mu,
                                   const long long* keys, const float* step, const int* row_ints,
                                   float* ring, float* out, double* terms, float* loss, long long n,
                                   long long d, long long C, long long total, long long buf_len,
                                   int engine, int option, int drop, int staged,
-                                  long long smem_bytes, float l2, float keep_p, void* stream) {
-  if (n <= 0 || d <= 0 || C <= 0 || total <= 0 || buf_len <= 0 || engine < 0 || engine > 1) {
+                                  long long smem_bytes, int reg, float lam, float alpha,
+                                  float keep_p, void* stream) {
+  if (n <= 0 || d <= 0 || C <= 0 || total <= 0 || buf_len <= 0 || engine < 0 || engine > 1 ||
+      reg < 0 || reg > 1) {
     return (int)cudaErrorInvalidValue;
   }
   const long long bytes =
       layout_bytes(d, buf_len, engine == 0, ring == nullptr, staged != 0);
   if (bytes != smem_bytes) return (int)cudaErrorInvalidValue;
+  const float coef = 2.0f * lam * alpha;  // float32 steps, as regularizer.clip_coef
   Params p{X, y, w, mu, keys, step, row_ints, ring, out, (int)d, (int)C, (int)total,
-           (int)buf_len, option, drop, (uint32_t)n, fold_multiplier((uint32_t)n), l2,
-           keep_p};
+           (int)buf_len, option, drop, (uint32_t)n, fold_multiplier((uint32_t)n), reg, lam,
+           alpha, coef, keep_p};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = engine == 0 ? (staged ? launch_rows<true, true>(p, bytes, st)
                                   : launch_rows<true, false>(p, bytes, st))
@@ -554,7 +582,8 @@ extern "C" int sweep_epoch_launch(const float* X, const float* y, const float* w
       X, y, out, terms, (int)n, (int)d, (int)C);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  loss_sum_kernel<<<(unsigned)C, kLossThreads, 0, st>>>(terms, out, loss, (int)n, (int)d, l2);
+  loss_sum_kernel<<<(unsigned)C, kLossThreads, 0, st>>>(terms, out, loss, (int)n, (int)d, reg, lam,
+                                                       alpha);
   return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,8 @@ def _entries():
     launch_fn = lib.logreg_grad_launch
     launch_fn.argtypes = ([ctypes.c_void_p] * 5
                           + [ctypes.c_longlong] * 3
-                          + [ctypes.c_float, ctypes.c_void_p])
+                          + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                             ctypes.c_void_p])
     launch_fn.restype = ctypes.c_int
     return scratch, launch_fn
 
@@ -33,10 +34,11 @@ def scratch_floats(n: int, p: int, C: int) -> int:
     return int(_entries()[0](n, p, C))
 
 
-def launch(X, y, W, scratch, G, l2: float) -> int:
-    """G = ∇f(W) for X [n, p], y [n], W [C, p], into G [C, p]."""
+def launch(X, y, W, scratch, G, reg) -> int:
+    """G = ∇f(W) for X [n, p], y [n], W [C, p], into G [C, p]; ``reg`` a
+    `regularizer.Regularizer`."""
     n, p = X.shape
     stream = torch.cuda.current_stream(X.device).cuda_stream
     return _entries()[1](X.data_ptr(), y.data_ptr(), W.data_ptr(),
                          scratch.data_ptr(), G.data_ptr(), n, p, W.shape[0],
-                         l2, stream)
+                         reg.kind, reg.lam, reg.alpha, stream)

@@ -10,18 +10,22 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, regularizer
 from repro_torch.kernels.logreg_grad import kernel
 from repro_torch.kernels.logreg_grad.ref import logreg_grad_ref
 
 
-def logreg_grad(X, y, W, l2: float):
-    """∇f(w) = −(1/n) Xᵀ(y·σ(−y·Xw)) + λw for each row w of ``W``.
+def logreg_grad(X, y, W, reg):
+    """∇f(w) = −(1/n) Xᵀ(y·σ(−y·Xw)) + R'(w) for each row w of ``W``.
 
     ``X`` [n, p], ``y`` [n], ``W`` [C, p], all float32 → ``G`` [C, p].
+    ``reg`` names the penalty R: a float λ for L2 (R' = λw), or ``(lam,
+    alpha)`` for the clipped penalty of `NonconvexLogistic`
+    (`repro_torch.kernels.regularizer`).
     """
+    reg = regularizer.regularizer(reg)
     if dispatch.route(X, y, W) == dispatch.REFERENCE:
-        return logreg_grad_ref(X, y, W, l2)
+        return logreg_grad_ref(X, y, W, reg)
     if X.dim() != 2 or W.dim() != 2:
         raise ValueError(f"logreg_grad: X {tuple(X.shape)} and W "
                          f"{tuple(W.shape)} must both be 2-D")
@@ -37,7 +41,7 @@ def logreg_grad(X, y, W, l2: float):
     scratch = torch.empty(kernel.scratch_floats(n, p, C), dtype=torch.float32,
                           device=X.device)
     G = torch.empty((C, p), dtype=torch.float32, device=X.device)
-    rc = kernel.launch(X, y, W, scratch, G, float(l2))
+    rc = kernel.launch(X, y, W, scratch, G, reg)
     if rc != 0:
         raise RuntimeError(f"logreg_grad kernel launch failed: CUDA error {rc}")
     logreg_grad.launches += 1

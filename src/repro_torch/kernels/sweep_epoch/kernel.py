@@ -25,7 +25,8 @@ def _entries():
     launch_fn = lib.sweep_epoch_launch
     launch_fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 5
                           + [ctypes.c_int] * 4 + [ctypes.c_longlong]
-                          + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                          + [ctypes.c_int] + [ctypes.c_float] * 3
+                          + [ctypes.c_void_p])
     launch_fn.restype = ctypes.c_int
     draws_fn = lib.sweep_epoch_draws
     draws_fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
@@ -42,14 +43,14 @@ def max_shared_bytes(device: torch.device) -> int:
 
 def launch(X, y, w, mu, keys, step, row_ints, ring, out, terms, loss, *,
            engine: str, total: int, buf_len: int, option: int, drop: bool,
-           staged: bool, smem_bytes: int, l2: float, keep_p: float) -> int:
+           staged: bool, smem_bytes: int, reg, keep_p: float) -> int:
     """out [C, d] = one epoch of ``total`` updates from w [C, d] and loss
     [C] = f(out); ``ring`` is a [C, buf_len, d] buffer or None (ring in
     shared memory), ``staged`` takes the sampled rows through shared-memory
     stages (else through L2 prefetches), ``smem_bytes`` is the block's
     dynamic shared memory, which the kernel checks against its own layout;
     ``terms`` is a [C, n] float64 buffer for the loss's per-sample terms,
-    ``mu`` None for Hogwild!."""
+    ``mu`` None for Hogwild!; ``reg`` a `regularizer.Regularizer`."""
     n, d = X.shape
     stream = torch.cuda.current_stream(X.device).cuda_stream
     return _entries()[1](
@@ -59,7 +60,7 @@ def launch(X, y, w, mu, keys, step, row_ints, ring, out, terms, loss, *,
         None if ring is None else ring.data_ptr(), out.data_ptr(),
         terms.data_ptr(), loss.data_ptr(), n, d, w.shape[0], total, buf_len,
         ENGINE_CODES[engine], option, int(drop), int(staged), smem_bytes,
-        l2, keep_p, stream)
+        reg.kind, reg.lam, reg.alpha, keep_p, stream)
 
 
 def draws(key, n: int, d: int, tau: int, delay_id: int, steps: int, idx, age,

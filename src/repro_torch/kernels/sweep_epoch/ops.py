@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.asysvrg import _masked_epochs
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, regularizer
 from repro_torch.kernels.sweep_epoch import kernel
 from repro_torch.kernels.sweep_epoch.ref import sweep_epoch_ref
 
@@ -98,12 +98,14 @@ def _check_rows(C: int, tau, scheme_id, delay_id, *, engine: str, total: int,
         raise ValueError(f"sweep_epoch: drop_prob {drop_prob} not in [0, 1)")
 
 
-def sweep_epoch(X, y, l2: float, w, mu, keys, step, tau: Sequence[int],
+def sweep_epoch(X, y, reg, w, mu, keys, step, tau: Sequence[int],
                 scheme_id: Sequence[int], delay_id: Sequence[int], *,
                 engine: str, total: int, buf_len: int, option: int,
                 drop_prob: float, placement: str | None = None):
     """One epoch of ``total`` inner updates for each row of ``w``.
 
+    ``reg`` names the penalty of the objective: a float λ for L2, ``(lam,
+    alpha)`` for the clipped one (`repro_torch.kernels.regularizer`).
     ``X`` [n, d], ``y`` [n], ``w`` [C, d] and ``mu`` [C, d] (None for
     ``engine="hogwild"``) float32; ``keys`` [C, 2] int64 epoch keys;
     ``step`` [C] float32 (η, or Hogwild!'s current γ); ``tau``,
@@ -114,6 +116,7 @@ def sweep_epoch(X, y, l2: float, w, mu, keys, step, tau: Sequence[int],
     the first that fits; the kernel refuses one whose block does not fit.
     """
     C = w.shape[0]
+    reg = regularizer.regularizer(reg)
     _check_rows(C, tau, scheme_id, delay_id, engine=engine, total=total,
                 buf_len=buf_len, option=option, drop_prob=drop_prob)
     if placement is not None and placement not in _LAYOUT:
@@ -122,7 +125,7 @@ def sweep_epoch(X, y, l2: float, w, mu, keys, step, tau: Sequence[int],
     mu = mu if svrg else None
     tensors = (X, y, w, keys, step) + ((mu,) if svrg else ())
     if dispatch.route(*tensors) == dispatch.REFERENCE:
-        return sweep_epoch_ref(X, y, l2, w, mu, keys, step, tau, scheme_id,
+        return sweep_epoch_ref(X, y, reg, w, mu, keys, step, tau, scheme_id,
                                delay_id, engine=engine, total=total,
                                buf_len=buf_len, option=option,
                                drop_prob=drop_prob)
@@ -160,7 +163,7 @@ def sweep_epoch(X, y, l2: float, w, mu, keys, step, tau: Sequence[int],
                        loss, engine=engine, total=total, buf_len=buf_len,
                        option=option, drop=drop_prob > 0, staged=staged,
                        smem_bytes=shared_bytes(d, buf_len, engine, where),
-                       l2=float(l2),
+                       reg=reg,
                        keep_p=float(np.float32(1.0 - drop_prob)))
     if rc != 0:
         raise RuntimeError(f"sweep_epoch kernel launch failed ({where}): "
@@ -197,7 +200,9 @@ def fused_group_fn(obj, num_data: int, *, engine: str, epochs: int,
     """The fused group body for one (engine, M̃, option, buf_len) group:
     ``group(*data_args, *row_args) -> (w_fin [C, d], hist [C, epochs+1])``,
     the calling convention of `core.sweep._asysvrg_group_fn` /
-    `_hogwild_group_fn`. Epochs and per-row budgets run through
+    `_hogwild_group_fn`. The objective's data is ``(X, y, *reg)``: ``(X,
+    y, l2)`` for `LogisticRegression`, ``(X, y, lam, alpha)`` for
+    `NonconvexLogistic`. Epochs and per-row budgets run through
     `core.asysvrg._masked_epochs`, each epoch's losses come from the
     ``sweep_epoch`` launch; Hogwild! rows decay γ ← decay·γ after each live
     epoch, in float32."""
@@ -205,7 +210,7 @@ def fused_group_fn(obj, num_data: int, *, engine: str, epochs: int,
 
     def group(*all_args):
         data = all_args[:num_data]
-        X, y, l2 = data
+        X, y, *reg = data
         if hogwild:
             (keys, gammas, decays, taus, scheme_ids, delay_ids, row_epochs,
              w0_rows) = all_args[num_data:]
@@ -218,7 +223,7 @@ def fused_group_fn(obj, num_data: int, *, engine: str, epochs: int,
             sel = torch.tensor(live, device=w.device)
             mu = None if hogwild else obj.flat_full_grad(data, w)
             w_new, loss = sweep_epoch(
-                X, y, l2, w, mu, sub, steps[sel], [taus[c] for c in live],
+                X, y, tuple(reg), w, mu, sub, steps[sel], [taus[c] for c in live],
                 [scheme_ids[c] for c in live], [delay_ids[c] for c in live],
                 engine=engine, total=total, buf_len=buf_len, option=option,
                 drop_prob=drop_prob)

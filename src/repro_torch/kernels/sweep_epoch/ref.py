@@ -13,7 +13,9 @@ shares no code with the batched engine's chunked streams
 (`repro_torch.core.asysvrg._delay_chunks`), so it checks them.
 
 Float32 arithmetic in the kernel's order: the margin is summed in float64
-and the sigmoid taken in float64, rounded once; the update is
+and the sigmoid taken in float64, rounded once; the sample gradient adds
+the penalty's gradient (L2 or clipped, `repro_torch.kernels.regularizer`);
+the update is
 ``u − step·((g − g0) + mu)`` (Hogwild!: ``u − step·g``); option 2 returns
 ``acc / total``. The loss at the new iterate is summed in float64 and
 rounded once, as `repro_torch.core.objective.loss_fixed_order` computes it.
@@ -26,24 +28,25 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.kernels import regularizer
 
 _CONSISTENT, _INCONSISTENT, _UNLOCK = 0, 1, 2
 _ZERO, _FIXED = 0, 1
 
 
-def _sample_grad(x, yi, l2: float, w):
-    """∇f_i(w) = −y_i σ(−y_i x_i·w) x_i + λw for one sample per row."""
+def _sample_grad(x, yi, reg, w):
+    """∇f_i(w) = −y_i σ(−y_i x_i·w) x_i + R'(w) for one sample per row."""
     z = torch.sum(x * w, dim=-1, dtype=torch.float64)
     s = torch.sigmoid(-yi * z).to(torch.float32)
-    return (-yi * s)[:, None] * x + l2 * w
+    return (-yi * s)[:, None] * x + regularizer.grad(reg, w)
 
 
-def _loss(X, y, l2: float, w):
+def _loss(X, y, reg, w):
     """f(w) for each row of ``w`` [C, d] → [C]."""
     z = -(y * torch.sum(X * w[:, None, :], dim=-1, dtype=torch.float64))
     t = torch.logaddexp(torch.zeros_like(z), z)
-    sq = torch.sum((w * w).to(torch.float64), dim=-1).to(w.dtype)
-    return (torch.sum(t, dim=-1) / X.shape[0]).to(w.dtype) + 0.5 * l2 * sq
+    return ((torch.sum(t, dim=-1) / X.shape[0]).to(w.dtype)
+            + regularizer.value(reg, w))
 
 
 def epoch_streams(keys, n: int, total: int, tau, delay_id):
@@ -73,13 +76,15 @@ def draws(key, n: int, d: int, tau: int, delay_id: int, steps: int):
             prng.uniform(k_drop[0], (d,)))
 
 
-def sweep_epoch_ref(X, y, l2: float, w, mu, keys, step, tau: Sequence[int],
+def sweep_epoch_ref(X, y, reg, w, mu, keys, step, tau: Sequence[int],
                     scheme_id: Sequence[int], delay_id: Sequence[int], *,
                     engine: str, total: int, buf_len: int, option: int,
                     drop_prob: float):
     """X [n, d], y [n], w [C, d], mu [C, d] (None for Hogwild!), keys
     [C, 2], step [C] → the rows' iterates after one epoch [C, d] and the
-    loss at each [C]."""
+    loss at each [C]. ``reg``: a float λ (L2) or ``(lam, alpha)``
+    (clipped)."""
+    reg = regularizer.regularizer(reg)
     C, d = w.shape
     device = w.device
     ints = dict(dtype=torch.int64, device=device)
@@ -109,13 +114,13 @@ def sweep_epoch_ref(X, y, l2: float, w, mu, keys, step, tau: Sequence[int],
                                torch.where(scheme == _UNLOCK,
                                            ages % slots[:, None], slot))
         x, yi = X[idx[:, m]], y[idx[:, m]]
-        g = _sample_grad(x, yi, l2, ring.gather(1, slot[:, None, :])[:, 0])
+        g = _sample_grad(x, yi, reg, ring.gather(1, slot[:, None, :])[:, 0])
         keep = None
         if dropping:
             kept = (prng.uniform(k_drop[:, m], (d,)) < keep_p).to(torch.float32)
             keep = torch.where(scheme == _UNLOCK, kept, 1.0)
         if svrg:
-            g0, gf = _sample_grad(x, yi, l2, w), mu
+            g0, gf = _sample_grad(x, yi, reg, w), mu
             if keep is not None:
                 g, g0, gf = g * keep, g0 * keep, gf * keep
             u = u - rate * ((g - g0) + gf)
@@ -127,4 +132,4 @@ def sweep_epoch_ref(X, y, l2: float, w, mu, keys, step, tau: Sequence[int],
         ring[rows, (m + 1) % slots] = u
     if svrg and option == 2:
         u = acc / torch.full((C, 1), float(total), device=device)
-    return u, _loss(X, y, l2, u)
+    return u, _loss(X, y, reg, u)

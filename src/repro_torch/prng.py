@@ -17,7 +17,7 @@ host.
 Sources (JAX 0.9.0): ``jax/_src/prng.py`` (`threefry_seed`,
 `_threefry2x32_lowering`, `_threefry_split_foldlike`,
 `_threefry_random_bits_partitionable`) and ``jax/_src/random.py``
-(`_uniform`, `_randint`, `_bernoulli`).
+(`_uniform`, `_randint`, `_bernoulli`, `_normal_real`).
 """
 from __future__ import annotations
 
@@ -106,6 +106,47 @@ def uniform(key: torch.Tensor, shape: Tuple[int, ...], minval: float = 0.0,
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+# The single-precision inverse error function XLA evaluates for
+# `lax.erf_inv` (M. Giles' approximation): w = −log1p(−x²); a degree-8
+# polynomial in w − 2.5 (w < 5) or in √w − 3, then times x.
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv32(x: torch.Tensor) -> torch.Tensor:
+    """erfinv of float32 ``x`` in (−1, 1) by XLA's float32 polynomial. The
+    Horner steps are fused multiply-adds, as XLA's CPU code runs them,
+    formed as an exact float64 product plus a float64 sum rounded once;
+    log1p is taken in float64 and rounded. Every step is then an IEEE
+    operation, so the result is the same on every device."""
+    f64 = torch.float64
+    w = -torch.log1p(-(x * x).to(f64)).to(torch.float32)
+    small = w < 5.0
+    t = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).to(f64)
+    coef = [torch.where(small, a, b).to(f64)
+            for a, b in zip(_ERFINV_SMALL, _ERFINV_LARGE)]
+    p = coef[0].to(torch.float32)
+    for c in coef[1:]:
+        p = (c + p.to(f64) * t).to(torch.float32)
+    return p * x
+
+
+def normal(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32: u uniform on the open
+    interval (−1, 1) (`uniform` from the float32 just above −1 to 1), then
+    ``sqrt(2)·erfinv(u)``. The uniform draws are JAX's bit for bit; the
+    inverse error function is XLA's float32 polynomial (`_erfinv32`), which
+    lands within an ulp of `jax.random.normal` (within 1e-6, not every bit
+    equal: tests/test_torch_objectives.py)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, minval=lo, maxval=1.0)
+    return float(np.float32(np.sqrt(2.0))) * _erfinv32(u)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Tuple[int, ...]) -> torch.Tensor:

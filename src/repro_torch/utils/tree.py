@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -121,3 +122,53 @@ def tree_bytes(tree) -> int:
 
 def tree_cast(tree, dtype):
     return tree_map(lambda x: x.to(dtype), tree)
+
+
+# ---------------------------------------------------------------------------
+# Flatten / unflatten: the engines' pytree <-> flat bridge
+#
+# The engines do their ring-buffer and update math on ONE flat vector per
+# row; pytree objectives (the MLP's dict of weights) cross that boundary
+# through the two helpers below, which only move data: a concatenation of
+# the leaves in tree order one way, slices and reshapes the other, so the
+# round trip is exact. The layout is the JAX package's element for element
+# (dict keys sorted, each leaf row-major), so a flat row of one package
+# rebuilds into the same tree in the other. Leaves must share one dtype.
+# ---------------------------------------------------------------------------
+
+def _leaf_meta(tree):
+    leaves = tree_leaves(tree)
+    if not leaves:
+        raise ValueError("cannot ravel an empty tree")
+    dtypes = {x.dtype for x in leaves}
+    if len(dtypes) > 1:
+        raise ValueError(
+            f"tree_ravel requires one leaf dtype, got "
+            f"{sorted(map(str, dtypes))} — cast the tree first")
+    return leaves, [tuple(x.shape) for x in leaves]
+
+
+def tree_ravel(tree):
+    """A tree of same-dtype tensors as one 1-D tensor, leaves in tree order;
+    a single 1-D leaf passes through untouched."""
+    leaves, _ = _leaf_meta(tree)
+    if len(leaves) == 1 and leaves[0].dim() == 1:
+        return leaves[0]
+    return torch.cat([x.reshape(-1) for x in leaves])
+
+
+def tree_unravel_fn(template):
+    """``unravel(flat) -> tree`` for trees shaped like ``template``, the
+    inverse of `tree_ravel`. ``flat`` may carry leading batch dimensions
+    ``[..., size]``; each leaf then comes back as ``[..., *shape]``."""
+    leaves, shapes = _leaf_meta(template)
+    sizes = [int(np.prod(s)) if s else 1 for s in shapes]
+    bounds = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+
+    def unravel(flat):
+        lead = tuple(flat.shape[:-1])
+        parts = [flat[..., lo:hi].reshape(lead + shape)
+                 for lo, hi, shape in zip(bounds[:-1], bounds[1:], shapes)]
+        return tree_unflatten_like(template, parts)
+
+    return unravel

@@ -253,15 +253,16 @@ def test_sweep_epoch_hogwild_ring_stays_shared_longer(gen):
 
 
 def _sweep_vs_plain(gen, *, n, d, engine, total, tau=(7, 7, 7), option=2,
-                    placement=None, exact=False):
+                    placement=None, exact=False, reg=1e-3):
     """One ``sweep_epoch`` launch (at ``placement``, or the one chosen by
     size) against the plain version, every reader and delay kind with
     drops: iterate within 1e-5 and loss within rtol 1e-6, or with
-    ``exact`` equal bits. Returns the placement that ran."""
+    ``exact`` equal bits. ``reg``: the penalty (L2 λ, or ``(lam, alpha)``).
+    Returns the placement that ran."""
     C = len(tau)
     X, y, w, mu, keys = _sweep_inputs(gen, n, d, C)
     step = torch.tensor([0.5, 0.3, 0.2][:C], device="cuda")
-    args = (X, y, 1e-3, w, mu if engine == "asysvrg" else None, keys, step,
+    args = (X, y, reg, w, mu if engine == "asysvrg" else None, keys, step,
             list(tau), [0, 1, 2][:C], [2, 1, 2][:C])
     kw = dict(engine=engine, total=total, buf_len=max(tau) + 1,
               option=option, drop_prob=0.1)
@@ -302,6 +303,89 @@ def test_sweep_epoch_rcv1_width_equals_plain_bits(gen, engine, option):
     equal bits."""
     assert _sweep_vs_plain(gen, n=500, d=2048, engine=engine, total=128,
                            option=option, exact=True) == "shared"
+
+
+@pytest.mark.parametrize("placement", list(sweep_ops.PLACEMENTS))
+@pytest.mark.parametrize("engine,option", [("asysvrg", 2), ("asysvrg", 1),
+                                           ("hogwild", 0)])
+def test_sweep_epoch_clipped_penalty_equals_plain_bits(gen, engine, option,
+                                                       placement):
+    """The clipped penalty of NonconvexLogistic (λ 1e-2, α 10) at rcv1's
+    width, every placement: its gradient at the read iterate and at u0 and
+    its sum in the loss take the plain version's float32 steps, so iterate
+    and loss are equal bits."""
+    assert _sweep_vs_plain(gen, n=500, d=2048, engine=engine, total=128,
+                           option=option, placement=placement, exact=True,
+                           reg=(1e-2, 10.0)) == placement
+
+
+@pytest.mark.parametrize("n,p,C", [(96, 64, 1), (1000, 333, 3),
+                                   (20242, 2048, 5), (19996, 4096, 4)])
+def test_logreg_grad_clipped_penalty_matches_plain(gen, n, p, C):
+    """K2 with the clipped penalty: rtol 1e-5, atol 1e-6 (summation order),
+    each row bit-equal alone; an L2 call on the same inputs unchanged by
+    the penalty's argument."""
+    X = torch.randn((n, p), generator=gen, device="cuda") / p ** 0.5
+    y = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    W = 0.5 * torch.randn((C, p), generator=gen, device="cuda")
+    reg = (1e-2, 10.0)
+    G = logreg_grad(X, y, W, reg)
+    torch.testing.assert_close(G, logreg_grad_ref(X, y, W, reg), rtol=1e-5,
+                               atol=1e-6)
+    for c in range(C):
+        assert torch.equal(G[c], logreg_grad(X, y, W[c:c + 1], reg)[0])
+    assert torch.equal(logreg_grad(X, y, W, 1e-4), logreg_grad(X, y, W, (1e-4,)))
+
+
+def test_nonconvex_fused_sweep_matches_batched_on_the_card(gen):
+    """NonconvexLogistic fused (K2 + K3 with the clipped penalty) against
+    batched (K1 + K2) on the card, rtol 1e-5, atol 1e-6, and a row alone
+    equal in bits to the row in its group."""
+    from repro_torch.core.objectives import NonconvexLogistic
+
+    rng = np.random.default_rng(1)
+    X = (rng.standard_normal((300, 96)) / 8).astype(np.float32)
+    y = np.where(rng.random(300) < 0.5, -1.0, 1.0).astype(np.float32)
+    obj = NonconvexLogistic(X, y, lam=1e-2, alpha=10.0)
+
+    def specs(mode):
+        return [SweepSpec(scheme=s, step_size=0.5, num_threads=4,
+                          inner_steps=32, seed=c, engine_mode=mode)
+                for c, s in enumerate(("consistent", "inconsistent",
+                                       "unlock"))] + \
+            [SweepSpec(algo="hogwild", scheme="unlock", step_size=0.5,
+                       num_threads=4, tau=-1, engine_mode=mode)]
+
+    before = sweep_epoch.launches
+    fused = run_sweep(obj, 2, specs("fused"))
+    assert sweep_epoch.launches == before + 4          # 2 groups x 2 epochs
+    batched = run_sweep(obj, 2, specs("vmap"))
+    np.testing.assert_allclose(fused.histories, batched.histories,
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(fused.final_w, batched.final_w, rtol=1e-5,
+                               atol=1e-6)
+    alone = run_sweep(obj, 2, [specs("fused")[1]])
+    assert np.array_equal(alone.final_w[0], fused.final_w[1])
+    assert np.array_equal(alone.histories[0], fused.histories[1])
+
+
+def test_mlp_sweep_on_the_card_matches_cpu(gen):
+    """The MLP on the batched engine (K1 per update) on the card and on the
+    CPU: rtol 1e-5, atol 1e-6 (float64 inside, rounded once, on both)."""
+    from repro_torch.core.objectives import mlp_lm_objective
+
+    kw = dict(vocab_size=16, seq_len=4, d_model=8, d_hidden=16)
+    specs = [SweepSpec(scheme=s, step_size=0.1, tau=2, num_threads=4,
+                       inner_steps=32, seed=c)
+             for c, s in enumerate(("consistent", "inconsistent", "unlock"))]
+    before = svrg_update.launches
+    card = run_sweep(mlp_lm_objective(32, **kw), 2, specs)
+    assert svrg_update.launches == before + 2 * 128
+    cpu = run_sweep(mlp_lm_objective(32, device="cpu", **kw), 2, specs)
+    np.testing.assert_allclose(card.histories, cpu.histories, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(card.final_w, cpu.final_w, rtol=1e-5,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("placement", list(sweep_ops.PLACEMENTS))

@@ -86,6 +86,14 @@ OBS_SERVICE_MODULES = (
     "repro_torch.service.scheduler", "repro_torch.service.api")
 
 
+# the modules of the objectives and server slice
+OBJECTIVES_SERVER_MODULES = (
+    "repro_torch.core.objectives", "repro_torch.kernels.regularizer",
+    "repro_torch.server.fairness", "repro_torch.server.daemon",
+    "repro_torch.server.metrics", "repro_torch.server.http",
+    "repro_torch.server.client")
+
+
 def _assert_checked(modules):
     proc = _run([sys.executable, "-c", _LIST_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
@@ -110,6 +118,10 @@ def test_checks_cover_the_recurrent_modules():
 
 def test_checks_cover_the_obs_and_service_modules():
     _assert_checked(OBS_SERVICE_MODULES)
+
+
+def test_checks_cover_the_objectives_and_server_modules():
+    _assert_checked(OBJECTIVES_SERVER_MODULES)
 
 
 def test_source_never_names_jax_or_repro():

@@ -144,3 +144,41 @@ def test_encdec_card_vs_cpu_limit_tightened_not_loosened():
     assert vision == smoke.RECURRENT_ATOL
     assert [arch for arch, _, _ in smoke.ENCDEC_VLM_CUT] == \
         [smoke.ENCDEC_ARCH, smoke.VLM_ARCH]
+
+
+def test_objectives_and_server_phases_plan_their_groups():
+    """Phase `objectives`' 5 rows make one AsySVRG/SVRG group and a Hogwild!
+    row, fused or batched, and its card-vs-CPU rows the AsySVRG group at
+    M̃ 4096; phase `server`'s size flush puts the three fused L2 rows of
+    its two tenants in one group beside the nonconvex request's two."""
+    from repro_torch.core.objectives import NonconvexLogistic
+    from repro_torch.core.sweep import plan_sweep
+    from repro_torch.service.scheduler import SweepRequest, coalesce
+
+    rng = np.random.default_rng(0)
+    n, p = 20242, 8
+    X = rng.standard_normal((n, p)).astype(np.float32)
+    y = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    ncv = NonconvexLogistic(X, y, lam=smoke.NCV_LAM, alpha=smoke.NCV_ALPHA,
+                            device="cpu")
+    for mode in ("vmap", "fused"):
+        plan = plan_sweep(ncv, 2, smoke.ncv_specs(n, mode))
+        assert sorted(len(m) for m in plan.groups.values()) == [1, 4]
+        assert {k[2] for k in plan.groups} == {40480, 20240}
+    short = plan_sweep(ncv, 1, smoke.ncv_specs(n, "vmap", smoke.NCV_CPU_INNER)[:4])
+    assert [k[2] for k in short.groups] == [4096]
+
+    from repro_torch.core.objective import (LogisticRegression,
+                                            register_objective,
+                                            unregister_objective)
+    obj = LogisticRegression(X, y, 1e-4, device="cpu")
+    register_objective("rcv1-nonconvex", ncv)
+    try:
+        reqs = [SweepRequest(request_id=i, specs=tuple(specs), epochs=2,
+                             tenant=tenant)
+                for i, (tenant, specs) in enumerate(smoke.server_specs())]
+        batch = coalesce(obj, reqs)
+    finally:
+        unregister_objective("rcv1-nonconvex")
+    sizes = sorted(len(m) for m in batch.groups.values())
+    assert sizes == [1, 1, 3]

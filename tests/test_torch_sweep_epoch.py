@@ -247,7 +247,7 @@ class _Shifted(Objective):
 
 def test_fused_mode_takes_logistic_regression_only():
     obj = _Shifted()
-    with pytest.raises(NotImplementedError, match="objectives slice"):
+    with pytest.raises(NotImplementedError, match="per-sample gradient"):
         psw.plan_sweep(obj, 1, [psw.SweepSpec(engine_mode="fused")])
     psw.plan_sweep(obj, 1, [psw.SweepSpec(engine_mode="vmap")])
 

@@ -13,6 +13,7 @@ on the card.
     python3 tools/profile_port.py serve_timed ARCH  # prefill and decode, no profiler
     python3 tools/profile_port.py sweep_epoch  # the fused engine and K3 only
     python3 tools/profile_port.py train        # one SVRG train step only
+    python3 tools/profile_port.py objectives   # NonconvexLogistic batched, the MLP's sweep
 
 At the rcv1 width (n = 20242, p = 2048; data from
 `repro_torch.data.libsvm.make_synthetic_libsvm("rcv1")`):
@@ -387,6 +388,54 @@ def profile_sweep_epoch(ds, news20, steps: int = 4096):
               flush=True)
 
 
+def profile_objectives(ds) -> None:
+    """The beyond-paper objectives on the batched engine: `NonconvexLogistic`
+    (λ 1e-3, α 10) through `profile`'s 1- and 4-row epochs (the clipped
+    penalty's gradient in every sample gradient); then the MLP
+    (`mlp_lm_objective(64)` at benchmarks/nonconvex_frontier.py's widths,
+    3 rows, M̃ 256): the wall of its first run in the process (its float64
+    kernels load), then `_profiled` over one epoch: wall, device-busy
+    share, launches and host ``cudaLaunchKernel`` µs per update, the host
+    ops by self time."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.core.objectives import NonconvexLogistic, mlp_lm_objective
+    from repro_torch.core.sweep import SweepSpec, run_sweep
+
+    ncv = NonconvexLogistic(ds.X, ds.y, lam=1e-3, alpha=10.0)
+    for rows in (1, 4):
+        print(json.dumps({"objective": "NonconvexLogistic",
+                          **profile(ncv, rows, STEPS)}), flush=True)
+    mlp = mlp_lm_objective(64, vocab_size=16, seq_len=4, d_model=8,
+                           d_hidden=16)
+    specs = [SweepSpec(scheme="inconsistent", step_size=st, tau=2,
+                       num_threads=4, inner_steps=mlp.n, seed=i)
+             for i, st in enumerate((0.05, 0.1, 0.2))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_sweep(mlp, 1, specs)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    wall, prof_wall, events = _profiled(lambda: run_sweep(mlp, 1, specs))
+    steps = 4 * mlp.n
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    print(json.dumps({
+        "objective": "MLPObjective", "n": mlp.n, "flat_dim": mlp.flat_dim,
+        "rows": len(specs), "updates": steps, "first_run_s": first,
+        "wall_s_per_epoch": wall, "profiled_wall_s": prof_wall,
+        "device_busy_share": sum(_device_time_us(e) for e in kernels)
+        * 1e-6 / prof_wall,
+        "launches_per_update": sum(e.count for e in kernels) / steps,
+        "cuda_launch_host_us_per_update": sum(
+            e.self_cpu_time_total for e in host
+            if e.key == "cudaLaunchKernel") / steps,
+        "host_ops": [{"name": e.key[:60], "count": e.count,
+                      "self_us_per_update": e.self_cpu_time_total / steps}
+                     for e in host[:12]]}), flush=True)
+
+
 def _summary(events, wall: float, steps: int) -> dict:
     """Device-busy share, top device kernels and top host ops of a profiled
     window of ``wall`` seconds holding ``steps`` steps."""
@@ -607,6 +656,9 @@ def main(argv=None) -> int:
             print(json.dumps(profile(obj, rows, STEPS)), flush=True)
         print(json.dumps(k1_host_path()), flush=True)
         batched_kernel_times(ds)
+        return 0
+    if argv == ["objectives"]:
+        profile_objectives(ds)
         return 0
     if argv == ["sweep_epoch"]:
         print(json.dumps(profile_fused(obj)), flush=True)
