@@ -51,6 +51,18 @@ just after; the paper's paths at the full width of the rcv1 configuration
     the same shapes under ``cancel_row`` freezes it, constructs no runner
     and builds no kernel; `run_job` cut after one group and resumed
     equals the job in one call;
+  * phase `sharding` (after phases `objectives` and `server`), its ranks
+    spawned processes under a 120 s deadline each: a 2-rank `gloo` world,
+    both ranks on this card (two processes time-sharing it, not a
+    multi-GPU figure), runs the fused grid at full rcv1 and the batched
+    grid at a tenth of its rows through `run_sweep(mesh=make_sweep_mesh())`
+    (each twice, the second run warm; equal bits / rtol 1e-5 against the
+    unsharded runs, each rank's K1/K2/K3 launches its shard's groups x
+    epochs), a sharded `SweepService` flush from a cleared runner cache
+    (runners constructed) and a warm one (no runner constructed, no
+    kernel built), and `bounded_staleness_epoch` with each compression on the
+    card against the CPU; a 1-rank `nccl` world takes the unsharded path
+    (equal bits) and reduces through NCCL;
 
 and the serve path at the full width of gemma3-4b (34 layers, d_model 2560,
 vocab 262144; random weights from a seed, bf16 activations):
@@ -1910,6 +1922,359 @@ def phase_server(obj, ncv):
     return rec
 
 
+# phase `sharding`: config-row sharding over torch.distributed and the
+# bounded-staleness epoch. Its ranks are spawned processes; on the one card
+# of this machine the 2-rank world is `gloo` (NCCL refuses two ranks on
+# one device) and NCCL runs in a world of one.
+BSE_H, BSE_BATCH, BSE_STEP = 4, 64, 1.0
+BSE_METHODS = ("none", "topk", "randk", "int8")
+BSE_INT8_FLIPS = 4      # int8 coordinates a card/CPU rounding may flip
+
+
+def bse_run(mesh, ds, device, method, workers):
+    """`bounded_staleness_epoch` at rcv1 width on ``device``: RCV1_EPOCHS
+    epochs of H = BSE_H local steps on BSE_BATCH-row minibatches drawn
+    from rcv1 by a numpy seed, the residuals carried, the key of epoch e
+    ``PRNGKey(e)``; the snapshot from the port's snapshot pass over epoch
+    0's minibatches. Returns ([(params, residual)] per epoch as numpy,
+    (the loss, the snapshot state, the minibatches))."""
+    from repro_torch import prng
+    from repro_torch.config import SVRGConfig
+    from repro_torch.core import distributed as D
+
+    def loss(params, batch):
+        X, y = batch
+        margins = y * (X @ params["w"])
+        return (torch.mean(torch.nn.functional.softplus(-margins))
+                + 0.5 * ds.l2_reg * torch.sum(params["w"] * params["w"]))
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(RCV1_EPOCHS):
+        idx = rng.integers(0, ds.n, size=(workers, BSE_H, BSE_BATCH))
+        batches.append((torch.from_numpy(ds.X[idx]).to(device),
+                        torch.from_numpy(ds.y[idx]).to(device)))
+    params = {"w": torch.zeros(ds.p, device=device)}
+    X0, y0 = batches[0]
+    svrg = D.snapshot_accumulate(loss, params,
+                                 D.snapshot_begin(D.init_svrg_state(params)),
+                                 (X0.reshape(-1, ds.p), y0.reshape(-1)))
+    svrg = D.snapshot_finalize(params, svrg, 0)
+    cfg = SVRGConfig(local_steps=BSE_H, compression=method)
+    ef, out = None, []
+    for e, batch in enumerate(batches):
+        params, ef = D.bounded_staleness_epoch(
+            mesh, loss, params, svrg, batch, BSE_STEP, cfg,
+            rng=prng.PRNGKey(e, device), ef=ef)
+        out.append((params["w"].cpu().numpy(),
+                    ef.residual["w"].cpu().numpy()))
+    return out, (loss, svrg, batches)
+
+
+def sharded_sweep(mesh, obj, mode):
+    """The 5-row grid of `sweep_specs` through `run_sweep(mesh=mesh)`,
+    twice: the first run in this process (its runners constructed, first
+    calls paid) and a warm one. Per run, its launch counts read in this
+    rank and its wall between a barrier and a synchronise."""
+    import torch.distributed as dist
+
+    from repro_torch.core.sweep import run_sweep
+
+    specs, total = sweep_specs(obj, mode)
+    runs = []
+    for _ in ("cold", "warm"):
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_sweep(obj, RCV1_EPOCHS, specs, mesh=mesh)
+        torch.cuda.synchronize()
+        runs.append(dict(histories=res.histories, final_w=res.final_w,
+                         total=total, wall_s=time.perf_counter() - t0,
+                         launches=read_counts()))
+    return runs
+
+
+def sharding_gloo_rank(rank, world):
+    """A rank of phase `sharding` (a): the fused grid at full rcv1 and the
+    batched grid at a tenth of its rows through `run_sweep` over a 2-rank
+    `data` mesh; a `SweepService(mesh=...)` flush of two requests, the
+    same requests through standalone sharded `run_sweep`, and a warm
+    flush, the first from a cleared runner cache (the sweeps above built
+    the same group keys); `bounded_staleness_epoch` for each compression
+    method on the card and on the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch import LogisticRegression
+    from repro_torch.core.sweep import SweepSpec, run_sweep
+    from repro_torch.data.libsvm import make_synthetic_libsvm
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_sweep_mesh
+    from repro_torch.service import SweepService, cache_stats, clear_cache
+    from repro_torch.sharding.context import collective_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_sweep_mesh()
+    group = mesh.get_group("data")
+    ds = make_synthetic_libsvm("rcv1", scale=1.0)
+    obj = LogisticRegression(ds.X, ds.y, ds.l2_reg)
+    sds = make_synthetic_libsvm("rcv1", scale=SERVICE_SMALL_SCALE)
+    small = LogisticRegression(sds.X, sds.y, sds.l2_reg)
+    out = dict(device=str(torch.device("cuda", torch.cuda.current_device())),
+               backend=dist.get_backend(group),
+               collective_device=str(collective_device(group)),
+               fused=sharded_sweep(mesh, obj, "fused"),
+               batched=sharded_sweep(mesh, small, "vmap"))
+
+    requests = [[SweepSpec(seed=seed, scheme=scheme, step_size=STEP_SIZE,
+                           num_threads=THREADS, engine_mode="fused")
+                 for seed, scheme in ((5, "consistent"), (6, "unlock"))],
+                [SweepSpec(seed=7, algo="hogwild", scheme="unlock",
+                           step_size=STEP_SIZE, num_threads=THREADS, tau=-1,
+                           engine_mode="fused")]]
+    svc = SweepService(obj, epochs=RCV1_EPOCHS, mesh=mesh)
+    clear_cache()
+    flushes = []
+    for _ in range(2):
+        rids = [svc.submit(specs) for specs in requests]
+        dist.barrier()
+        torch.cuda.synchronize()
+        base, built = cache_stats(), _build.builds()
+        reset_counts()
+        t0 = time.perf_counter()
+        svc.flush()
+        flush_s = time.perf_counter() - t0
+        delta = cache_stats().since(base)
+        flushes.append(dict(
+            flush_s=flush_s, launches=read_counts(),
+            runners_constructed=delta.misses, compiles=delta.compiles,
+            kernels_built=_build.builds() - built,
+            results=[(r.histories, r.final_w)
+                     for r in (svc.result(rid) for rid in rids)]))
+        if len(flushes) == 1:
+            alone = [run_sweep(obj, RCV1_EPOCHS, specs, mesh=mesh)
+                     for specs in requests]
+            out["alone"] = [(r.histories, r.final_w) for r in alone]
+    out["flushes"] = flushes
+
+    t0 = time.perf_counter()
+    out["bse"] = {m: (bse_run(mesh, ds, "cuda", m, 2)[0],
+                      bse_run(mesh, ds, "cpu", m, 2)[0]) for m in BSE_METHODS}
+    out["bse_s"] = time.perf_counter() - t0
+    return out
+
+
+def sharding_nccl_rank(rank, world):
+    """Phase `sharding` (b), a world of one on `nccl`: `make_sweep_mesh()`'s
+    1-rank `data` axis takes the unsharded path (the fused grid at full
+    rcv1), and `bounded_staleness_epoch` at W = 1 against H sequential
+    local SVRG steps, its all-reduce through NCCL."""
+    import torch.distributed as dist
+
+    from repro_torch import LogisticRegression
+    from repro_torch.core.distributed import svrg_direction, value_and_grad
+    from repro_torch.core.sweep import run_sweep
+    from repro_torch.data.libsvm import make_synthetic_libsvm
+    from repro_torch.launch.mesh import make_sweep_mesh
+    from repro_torch.sharding.context import collective_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_sweep_mesh()
+    group = mesh.get_group("data")
+    ds = make_synthetic_libsvm("rcv1", scale=1.0)
+    obj = LogisticRegression(ds.X, ds.y, ds.l2_reg)
+    specs, _ = sweep_specs(obj, "fused")
+    torch.cuda.synchronize()
+    reset_counts()
+    res = run_sweep(obj, RCV1_EPOCHS, specs, mesh=mesh)
+    out = dict(backend=dist.get_backend(group),
+               collective_device=str(collective_device(group)),
+               histories=res.histories, final_w=res.final_w,
+               launches=read_counts())
+    # one epoch at W = 1 against the same H steps taken one after another
+    got, (loss, svrg, batches) = bse_run(mesh, ds, "cuda", "none", 1)
+    vgrad = value_and_grad(loss)
+    w = {"w": torch.zeros_like(svrg.w_snap["w"])}   # the start: zeros
+    X, y = batches[0]
+    for h in range(BSE_H):
+        _, g = vgrad(w, (X[0, h], y[0, h]))
+        _, g0 = vgrad(svrg.w_snap, (X[0, h], y[0, h]))
+        v = svrg_direction(g, g0, svrg.g_snap)
+        w = {"w": w["w"] - BSE_STEP * v["w"]}
+    out["bse_w"], out["sequential_w"] = got[0][0], w["w"].cpu().numpy()
+    return out
+
+
+def _bse_gap(card, cpu):
+    """Card against CPU over the epochs of one method: the largest gap and
+    the coordinates beyond rtol 1e-4, atol 1e-5 (the card-vs-CPU limits),
+    per epoch, in the params and in the residuals."""
+    gaps, beyond = 0.0, []
+    for (w, r), (w_ref, r_ref) in zip(card, cpu):
+        n = 0
+        for a, b in ((w, w_ref), (r, r_ref)):
+            d = np.abs(a - b)
+            gaps = max(gaps, float(d.max()))
+            n += int(np.sum(d > 1e-5 + 1e-4 * np.abs(b)))
+        beyond.append(n)
+    return gaps, beyond
+
+
+def phase_sharding(obj, fused, fused_s_per_epoch):
+    """Config-row sharding and the bounded-staleness epoch over
+    torch.distributed, ranks as spawned processes under
+    `launch.mesh.WORLD_DEADLINE_S` each:
+
+      (a) 2 ranks, `gloo`, both on cuda:0 (two processes time-sharing the
+          one card: no multi-GPU figure): the 5-row fused grid at full
+          rcv1 row-sharded (the 4-row group 2 rows a rank, the Hogwild!
+          row padded to 2) against the unsharded fused `run_sweep` of
+          phase `run_sweep_fused` (equal bits); the batched grid at a
+          tenth of rcv1's rows against the unsharded run here (rtol 1e-5,
+          atol 1e-6); each grid run twice, cold and warm, both checked;
+          each rank's K1/K2/K3 launches its shard's groups x epochs (x M̃
+          for K1); a sharded `SweepService` flush of two requests from a
+          cleared runner cache, which constructs runners, against
+          standalone sharded `run_sweep` (equal bits), and a warm flush
+          that constructs no runner and builds no kernel;
+          `bounded_staleness_epoch` for each compression method on the card
+          against the same call on the CPU (int8 may flip up to
+          ``BSE_INT8_FLIPS`` coordinates an epoch, where x/scale + noise
+          rounds on the other side of a half-integer);
+      (b) 1 rank, `nccl`: `make_sweep_mesh()` of one gives the unsharded
+          path's bits; `bounded_staleness_epoch` at W = 1 equals H
+          sequential local steps, its all-reduce through NCCL."""
+    import shutil
+    import tempfile
+
+    from repro_torch import LogisticRegression
+    from repro_torch.core.sweep import run_sweep
+    from repro_torch.data.libsvm import make_synthetic_libsvm
+    from repro_torch.launch.mesh import run_world
+
+    sds = make_synthetic_libsvm("rcv1", scale=SERVICE_SMALL_SCALE)
+    small = LogisticRegression(sds.X, sds.y, sds.l2_reg)
+    specs, total_small = sweep_specs(small, "vmap")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unsharded_b = run_sweep(small, RCV1_EPOCHS, specs)
+    unsharded_b_s = time.perf_counter() - t0
+
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_world-", dir=root))
+    try:
+        t0 = time.perf_counter()
+        ranks = run_world(sharding_gloo_rank, 2, backend="gloo",
+                          init_file=str(tmp / "gloo"))
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (nccl,) = run_world(sharding_nccl_rank, 1, backend="nccl",
+                            init_file=str(tmp / "nccl"))
+        nccl_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    want_fused = {"sweep_epoch": 2 * RCV1_EPOCHS, "logreg_grad": RCV1_EPOCHS,
+                  "svrg_update": 0, "flash_attention": 0}
+    want_batched = {"svrg_update": RCV1_EPOCHS * total_small,
+                    "logreg_grad": RCV1_EPOCHS, "sweep_epoch": 0,
+                    "flash_attention": 0}
+    per_rank = []
+    def within_tol(run, want):
+        return bool(np.allclose(run["histories"], want.histories, rtol=1e-5,
+                                atol=1e-6)
+                    and np.allclose(run["final_w"], want.final_w, rtol=1e-5,
+                                    atol=1e-6))
+
+    for out in ranks:
+        (f_cold, f), (b_cold, b) = out["fused"], out["batched"]
+        cold, warm = out["flushes"]
+        bse = {m: _bse_gap(card, cpu) for m, (card, cpu) in out["bse"].items()}
+        per_rank.append(dict(
+            device=out["device"], backend=out["backend"],
+            collective_device=out["collective_device"],
+            fused_bits_equal_unsharded=bool(all(
+                np.array_equal(run["histories"], fused.histories)
+                and np.array_equal(run["final_w"], fused.final_w)
+                for run in (f_cold, f))),
+            batched_within_tol_unsharded=bool(
+                within_tol(b_cold, unsharded_b)
+                and within_tol(b, unsharded_b)),
+            batched_max_abs_dw=float(max(
+                np.abs(run["final_w"] - unsharded_b.final_w).max()
+                for run in (b_cold, b))),
+            fused_launches=f["launches"], batched_launches=b["launches"],
+            cold_launches_equal=bool(f_cold["launches"] == f["launches"]
+                                     and b_cold["launches"] == b["launches"]),
+            fused_wall_s=f["wall_s"], batched_wall_s=b["wall_s"],
+            fused_cold_wall_s=f_cold["wall_s"],
+            batched_cold_wall_s=b_cold["wall_s"],
+            service_equal_alone=bool(all(
+                np.array_equal(g[0], a[0]) and np.array_equal(g[1], a[1])
+                for flush in (cold, warm)
+                for g, a in zip(flush["results"], out["alone"]))),
+            flushes=[{k: v for k, v in fl.items() if k != "results"}
+                     for fl in (cold, warm)],
+            bse_max_gap={m: g for m, (g, _) in bse.items()},
+            bse_beyond_tol={m: n for m, (_, n) in bse.items()},
+            bse_s=out["bse_s"]))
+    ranks_agree = bool(all(
+        np.array_equal(ranks[0][k][i]["final_w"], ranks[1][k][i]["final_w"])
+        for k in ("fused", "batched") for i in (0, 1)))
+    nccl_rec = dict(
+        backend=nccl["backend"], collective_device=nccl["collective_device"],
+        launches=nccl["launches"],
+        bits_equal_unsharded=bool(
+            np.array_equal(nccl["histories"], fused.histories)
+            and np.array_equal(nccl["final_w"], fused.final_w)),
+        bse_vs_sequential_max_abs=float(np.abs(nccl["bse_w"]
+                                               - nccl["sequential_w"]).max()))
+    rec = dict(
+        phase="sharding", card_sharing="2 processes time-sharing one card "
+        "(gloo); not a multi-GPU figure", epochs=RCV1_EPOCHS,
+        n=obj.n, n_small=sds.n, p=obj.p, ranks=per_rank,
+        ranks_agree=ranks_agree, nccl=nccl_rec,
+        unsharded_fused_wall_s=fused_s_per_epoch * RCV1_EPOCHS,
+        unsharded_batched_wall_s=unsharded_b_s,
+        gloo_world_s=gloo_s, nccl_world_s=nccl_s,
+        bse=dict(H=BSE_H, batch=BSE_BATCH, step=BSE_STEP,
+                 methods=list(BSE_METHODS)))
+    emit(**rec)
+    for r in per_rank:
+        if (r["backend"], r["device"], r["collective_device"]) != \
+                ("gloo", "cuda:0", "cpu"):
+            raise AssertionError(f"sharding: rank placement {r}")
+        if not (r["fused_bits_equal_unsharded"]
+                and r["batched_within_tol_unsharded"] and ranks_agree):
+            raise AssertionError(f"sharding: sharded rows differ from "
+                                 f"unsharded: {r}")
+        if r["fused_launches"] != want_fused \
+                or r["batched_launches"] != want_batched \
+                or not r["cold_launches_equal"]:
+            raise AssertionError(f"sharding: per-rank launches "
+                                 f"{r['fused_launches']} / "
+                                 f"{r['batched_launches']} != {want_fused} / "
+                                 f"{want_batched}")
+        cold, warm = r["flushes"]
+        if not r["service_equal_alone"] or cold["runners_constructed"] < 1 \
+                or warm["runners_constructed"] or warm["compiles"] \
+                or warm["kernels_built"]:
+            raise AssertionError(f"sharding: service flush {r}")
+        for m, beyond in r["bse_beyond_tol"].items():
+            if max(beyond) > (BSE_INT8_FLIPS if m == "int8" else 0):
+                raise AssertionError(f"sharding: bounded_staleness_epoch "
+                                     f"{m} card vs CPU: {r}")
+    if (nccl_rec["backend"], nccl_rec["collective_device"]) != \
+            ("nccl", "cuda:0") or not nccl_rec["bits_equal_unsharded"] \
+            or nccl_rec["launches"] != want_fused \
+            or nccl_rec["bse_vs_sequential_max_abs"] > 1e-6:
+        raise AssertionError(f"sharding: nccl world of one {nccl_rec}")
+    return rec
+
+
 def greedy_steps(bundle, params, batch, cache_len: int, new_tokens: int):
     """The serve session stepped by hand, greedy: (prefill logits, each
     decode's logits, the tokens [B, new_tokens], the final cache), nothing
@@ -3180,6 +3545,10 @@ def main() -> int:
     emit(phase="server_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    sharding = phase_sharding(obj, fused, fused_s)
+    emit(phase="sharding_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     serve_counts = phase_serve(report)
     emit(phase="serve_done", seconds=time.perf_counter() - t0)
 
@@ -3312,6 +3681,13 @@ def main() -> int:
     for i, name in ((1, "logreg_grad"), (2, "sweep_epoch")):
         kernels[i]["service_launches_per_flush"] = \
             service["first_flush"]["launches"][name]
+    # K1, K2 and K3 on the row-sharded sweeps (phase `sharding`): each
+    # rank's launches in the fused grid at full rcv1 and in the batched
+    # grid at a tenth of its rows, 2 ranks sharing the card
+    for i, name in enumerate(("svrg_update", "logreg_grad", "sweep_epoch")):
+        kernels[i]["sharded_launches_per_rank"] = {
+            mode: [r[f"{mode}_launches"][name] for r in sharding["ranks"]]
+            for mode in ("fused", "batched")}
     # K2 and K3 with the clipped penalty (NonconvexLogistic, phase
     # `objectives`): each against its plain version, timed at the L2 case's
     # shape beside its own bound; launches in the fused 5-row sweep, and in

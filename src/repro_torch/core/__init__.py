@@ -28,6 +28,18 @@ from repro_torch.core.sweep import (
     run_sweep,
 )
 from repro_torch.core.hogwild import hogwild_epoch, run_hogwild
+from repro_torch.core.compression import (
+    topk_compress,
+    randk_compress,
+    int8_compress,
+    ErrorFeedbackState,
+    compressed_update,
+)
+from repro_torch.core.distributed import (
+    bounded_staleness_epoch,
+    init_worker_error_feedback,
+    reshape_for_workers,
+)
 
 __all__ = [
     "LogisticRegression",
@@ -55,4 +67,12 @@ __all__ = [
     "run_sweep",
     "hogwild_epoch",
     "run_hogwild",
+    "topk_compress",
+    "randk_compress",
+    "int8_compress",
+    "ErrorFeedbackState",
+    "compressed_update",
+    "bounded_staleness_epoch",
+    "init_worker_error_feedback",
+    "reshape_for_workers",
 ]

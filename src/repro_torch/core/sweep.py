@@ -23,6 +23,19 @@ row's τ, scheme, delay kind, step size and epoch budget as data.
 ``""`` inherits `default_engine_mode()`: ``$REPRO_SWEEP_ENGINE``, else
 "vmap", as in the JAX package.
 
+**Config-row sharding.** When a mesh with a ``data`` axis is active —
+passed as ``run_sweep(..., mesh=...)`` or installed ambiently with
+`repro_torch.sharding.context.mesh_context` (`repro_torch.launch.mesh.
+make_sweep_mesh` / `make_production_mesh`) — each group's rows are padded
+to a multiple of the ``data`` size by repeating row 0, rank r runs rows
+``[r·C/W, (r+1)·C/W)`` through the same engine, and the row-leading
+outputs are all-gathered, so every rank gets the whole result and the
+padding rows are dropped. Under a mesh `run_sweep` is a collective call:
+every rank of the mesh calls it with the same arguments. No collective
+crosses rows inside the engine, so a sharded row equals the unsharded row
+(bit for bit on the CPU). Without a mesh, or with a 1-sized ``data`` axis,
+the unsharded path runs.
+
 **Masked per-row epochs.** ``SweepSpec.epochs`` (0 = inherit `run_sweep`'s
 ``epochs`` argument) lets rows of one call run different budgets: the group
 runs to its members' max and finished rows freeze, so a row with
@@ -50,9 +63,9 @@ Every group runs through the persistent runner cache
 each runner call is bracketed on the host by the tracer's ``execute`` span
 and the performance ledger (`repro_torch.obs`), both opt-in.
 
-Not ported yet, each raising `NotImplementedError`: a ``mesh`` (multi-GPU
-row sharding) and fused mode for an objective the kernels do not compute
-(the MLP). Neither falls back to another path.
+Not ported yet, raising `NotImplementedError`: fused mode for an
+objective the kernels do not compute (the MLP). It does not fall back to
+another path.
 """
 from __future__ import annotations
 
@@ -63,6 +76,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import prng
 from repro_torch.config import SVRGConfig
@@ -80,12 +95,15 @@ from repro_torch.kernels.dispatch import mode_tags
 from repro_torch.kernels.sweep_epoch import fused_group_fn
 from repro_torch.obs import ledger as _ledger
 from repro_torch.obs.trace import tracer as _tracer
+from repro_torch.sharding.context import all_gather, current_mesh
+from repro_torch.sharding.rules import mesh_shape
 
 ALGOS = ("asysvrg", "hogwild", "svrg")
 # svrg rows run on the asysvrg engine (τ=0 degenerate case), so two engines
 _ENGINE_ASYSVRG = "asysvrg"
 _ENGINE_HOGWILD = "hogwild"
 ENGINE_MODES = ("vmap", "fused")
+_DATA_AXIS = "data"
 _ENGINE_MODE_ENV = "REPRO_SWEEP_ENGINE"
 
 
@@ -391,6 +409,68 @@ def plan_sweep(obj: Optional[Objective], epochs: int,
                      objective=obj)
 
 
+def check_mesh(mesh) -> None:
+    """Raise unless ``mesh`` is None or a `DeviceMesh` with named dims."""
+    if mesh is not None and not (isinstance(mesh, DeviceMesh)
+                                 and mesh.mesh_dim_names):
+        raise TypeError(
+            "a sweep mesh is a torch.distributed DeviceMesh with named dims "
+            f"(repro_torch.launch.mesh), got {type(mesh).__name__}")
+
+
+def _active_mesh(mesh: Optional[DeviceMesh]) -> Optional[DeviceMesh]:
+    """The mesh whose `data` axis shards the config-row axis, if any.
+
+    Explicit ``mesh=`` wins; otherwise the ambient `mesh_context` mesh is
+    picked up, so a launcher that installed a mesh shards its sweeps with
+    no call-site changes. A mesh without a >1-sized ``data`` axis degrades
+    to the unsharded path."""
+    if mesh is None:
+        mesh = current_mesh()
+    check_mesh(mesh)
+    if mesh is None or mesh_shape(mesh).get(_DATA_AXIS, 1) <= 1:
+        return None
+    if mesh.get_coordinate() is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the sweep mesh "
+                         f"{mesh}: every rank that calls run_sweep under a "
+                         "mesh must be one of its ranks")
+    return mesh
+
+
+def _pad_rows(args: Tuple, pad: int) -> Tuple:
+    """Pad each row-leading argument (a tensor or a list) by repeating row 0
+    (a valid config: padding rows compute real, discarded work)."""
+    if pad == 0:
+        return args
+    return tuple(torch.cat([a] + [a[:1]] * pad) if isinstance(a, torch.Tensor)
+                 else list(a) + list(a[:1]) * pad for a in args)
+
+
+def _shard_group_fn(fn, mesh: DeviceMesh, num_data: int):
+    """Row-shard a group body over the mesh's `data` axis: the objective's
+    data arguments go whole to every rank, rank r runs rows
+    ``[r·C/W, (r+1)·C/W)`` of every row argument (C already a multiple of
+    W, `_pad_rows`), and the two row-leading outputs are all-gathered.
+
+    Each rank runs the same engine over its row block and NO collective
+    crosses rows, which is why sharded rows equal the unsharded path's.
+    Mesh axes other than `data` (`model` in the production mesh) run the
+    same rows redundantly. `_dispatch_group` wraps the cache's unsharded
+    runner at every sharded dispatch, so the runner cache keys no mesh and
+    holds no process group: one runner serves every mesh and every world."""
+    group = mesh.get_group(_DATA_AXIS)
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+
+    def sharded(*all_args):
+        data, rows = all_args[:num_data], all_args[num_data:]
+        per = len(rows[-1]) // world
+        mine = tuple(a[rank * per:(rank + 1) * per] for a in rows)
+        return tuple(torch.cat(all_gather(out, group))
+                     for out in fn(*data, *mine))
+
+    return sharded
+
+
 def _asysvrg_group_fn(obj: Objective, num_data: int, epochs: int, total: int,
                       buf_len: int, option: int, drop_prob: float):
     """The batched asysvrg/svrg engine for one group: called with the data
@@ -468,10 +548,15 @@ def _write_row_history(dst_row: np.ndarray, hist_row: np.ndarray,
 def _dispatch_group(obj: Objective, specs: Sequence[SweepSpec],
                     resolved: Sequence[_Resolved], members: Sequence[int],
                     key_: _GroupKey, group_epochs: int, w_init,
-                    drop_prob: float):
+                    drop_prob: float, mesh: Optional[DeviceMesh]):
     """Run ONE group on the objective's device through the persistent
     runner cache; returns (histories [rows, group_epochs+1], final_w
-    [rows, flat_dim]) as numpy.
+    [rows, flat_dim]) as numpy, padding rows already sliced off.
+
+    ``mesh`` (an active mesh, `_active_mesh`, or None) row-shards the
+    group: the rows are padded to a multiple of the ``data`` size and the
+    cache's runner is wrapped by `_shard_group_fn`, whose all-gather of
+    the outputs sits inside the bracket below like the copy to the host.
 
     ``specs``/``resolved`` are row-aligned sequences indexed by ``members``
     — `run_sweep` passes a single plan's rows, the service scheduler a
@@ -509,6 +594,12 @@ def _dispatch_group(obj: Objective, specs: Sequence[SweepSpec],
                               option=option, buf_len=buf_len,
                               drop_prob=drop_prob, obj=obj, fused=fused)
     data = obj.data_args()
+    if mesh is not None:
+        # pad the row axis to a multiple of the data-axis size; padded rows
+        # repeat row 0 and are sliced off below
+        args = _pad_rows(args, -len(members)
+                         % mesh_shape(mesh)[_DATA_AXIS])
+        runner = _shard_group_fn(runner, mesh, len(data))
     # Both brackets sit around the runner call, never inside an epoch body
     # or a kernel launcher (RL006); tags are built only with the tracer on.
     tr = _tracer()
@@ -524,9 +615,9 @@ def _dispatch_group(obj: Objective, specs: Sequence[SweepSpec],
         hist, w_fin = hist.cpu().numpy(), w_fin.cpu().numpy()
     if led_on:
         _ledger.ledger().record_dispatch(
-            key=key_, rows=len(members), dim=int(w_init.shape[0]),
+            key=key_, rows=len(args[-1]), dim=int(w_init.shape[0]),
             epochs=int(group_epochs), wall_s=time.perf_counter() - t0)
-    return hist, w_fin
+    return hist[:len(members)], w_fin[:len(members)]
 
 
 def group_label(key_: _GroupKey) -> str:
@@ -579,20 +670,20 @@ def _assemble_result(specs: Tuple[SweepSpec, ...],
 
 def run_sweep(obj: Optional[Objective], epochs: int,
               specs: Sequence[SweepSpec], *, w0=None,
-              drop_prob: float = 0.02, mesh=None) -> SweepResult:
+              drop_prob: float = 0.02,
+              mesh: Optional[DeviceMesh] = None) -> SweepResult:
     """Run every spec for its epoch budget, one engine run per
     (objective, engine, M̃, option, buf_len, fused) group, on the
-    objective's device. Runners come from the persistent cache in
-    `repro_torch.service.cache`: a repeated sweep with the same group dims
-    and data shapes constructs no runner. ``mesh`` must be None:
-    multi-GPU row sharding is a later slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sweep(mesh=...) needs multi-GPU row sharding, which a later "
-            "slice of the port brings; call it with mesh=None")
+    objective's device, row-sharded across the ``data`` axis of the mesh
+    when one is active (explicit ``mesh=`` or the ambient
+    `repro_torch.sharding.context` mesh; then a collective call, made by
+    every rank of the mesh with the same arguments). Runners come from the
+    persistent cache in `repro_torch.service.cache`: a repeated sweep with
+    the same group dims and data shapes constructs no runner."""
     plan = plan_sweep(obj, epochs, specs)
     specs, resolved, obj = plan.specs, plan.resolved, plan.objective
     w_init = obj.init_flat() if w0 is None else obj.as_flat(w0)
+    mesh = _active_mesh(mesh)
 
     C = len(specs)
     max_epochs = max(r.epochs for r in resolved)
@@ -602,7 +693,7 @@ def run_sweep(obj: Optional[Objective], epochs: int,
     for key_, members in plan.groups.items():
         group_epochs = plan.group_epochs(key_)
         hist, w_fin = _dispatch_group(obj, specs, resolved, members, key_,
-                                      group_epochs, w_init, drop_prob)
+                                      group_epochs, w_init, drop_prob, mesh)
         for row, c in enumerate(members):
             _write_row_history(histories[c], hist[row], group_epochs)
             final_w[c] = w_fin[row]

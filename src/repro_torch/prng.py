@@ -17,7 +17,7 @@ host.
 Sources (JAX 0.9.0): ``jax/_src/prng.py`` (`threefry_seed`,
 `_threefry2x32_lowering`, `_threefry_split_foldlike`,
 `_threefry_random_bits_partitionable`) and ``jax/_src/random.py``
-(`_uniform`, `_randint`, `_bernoulli`, `_normal_real`).
+(`_uniform`, `_randint`, `_bernoulli`, `_normal_real`, `_shuffle`).
 """
 from __future__ import annotations
 
@@ -185,3 +185,27 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     logits: the argmax of Gumbel noise plus the logits (int64)."""
     noise = gumbel(key, tuple(logits.shape))
     return torch.argmax(noise + logits, dim=-1)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for an int ``n`` (int64 on the
+    key's device): ``ceil(3·ln n / ln(2^32 − 1))`` rounds, each splitting
+    ``key, sub = split(key)``, drawing 32 random bits per element from
+    ``sub`` and stable-sorting the elements by them (JAX's `_shuffle`,
+    `lax.sort_key_val`). A bit word is a non-negative int64, so the int64
+    sort orders them as JAX's uint32 sort does."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK32)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key, 2)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
+def choice(key: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """``jax.random.choice(key, n, (k,), replace=False)``: the first ``k``
+    entries of ``permutation(key, n)``."""
+    if not 0 <= k <= n:
+        raise ValueError(f"cannot draw {k} of {n} without replacement")
+    return permutation(key, n)[:k]

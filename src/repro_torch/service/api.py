@@ -43,8 +43,10 @@ from repro_torch.core.objective import Objective
 from repro_torch.core.sweep import (
     SweepResult,
     SweepSpec,
+    _active_mesh,
     _assemble_result,
     _dispatch_group,
+    check_mesh,
     _write_row_history,
     group_label,
     plan_sweep,
@@ -53,6 +55,7 @@ from repro_torch.obs import progress as _progress
 from repro_torch.obs.metrics import ServiceHistograms
 from repro_torch.obs.trace import tracer as _tracer
 from repro_torch.service import cache as _cache
+from repro_torch.sharding.context import mesh_barrier
 from repro_torch.service.scheduler import (FlushSelector, SweepRequest,
                                            coalesce, dispatch)
 
@@ -119,8 +122,13 @@ class SweepService:
     built with ``device="cpu"``. ``obj`` may be None when every submitted
     spec names a REGISTERED objective; one service then sweeps many
     objectives, and the objective fingerprint in the group key keeps
-    their dispatches apart. ``mesh`` must be None (multi-GPU row sharding
-    is a later slice of the port).
+    their dispatches apart. ``mesh`` (a named `DeviceMesh`) row-shards
+    every flush over its ``data`` axis; ``mesh=None`` re-resolves the
+    ambient `repro_torch.sharding.context` mesh at every flush, so a
+    service created inside a launcher's `mesh_context` shards its groups
+    with no call-site changes. Under a mesh `flush` and `run_job` are
+    collective: every rank of the mesh submits the same requests and
+    flushes with them.
     """
 
     def __init__(self, obj: Optional[Objective], *, epochs: int = 10,
@@ -128,11 +136,9 @@ class SweepService:
                  w0=None, max_results: int = 1024,
                  latency_window: int = 512, max_tenants: int = 1024,
                  watchdog=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SweepService(mesh=...) needs multi-GPU row sharding, which "
-                "a later slice of the port brings; pass mesh=None")
+        check_mesh(mesh)
         self.obj = obj
+        self.mesh = mesh
         self.default_epochs = epochs
         self.drop_prob = drop_prob
         self.w0 = w0
@@ -300,6 +306,7 @@ class SweepService:
             with _cache.scoped_counters(self._cache_sink):
                 results, info = dispatch(self.obj, batch, w0=self.w0,
                                          drop_prob=self.drop_prob,
+                                         mesh=_active_mesh(self.mesh),
                                          watchdog=self.watchdog)
         except Exception as exc:
             for r in pending:
@@ -544,7 +551,10 @@ class SweepService:
         only the unfinished groups; a fingerprint of the resolved plan
         guards against resuming a DIFFERENT job from the same directory.
         ``max_groups`` caps how many groups this call dispatches
-        (preemption budget).
+        (preemption budget). Under a mesh the call is collective and
+        ``checkpointer`` names one directory that every rank reads: the
+        mesh's first rank alone writes it, and the ranks meet at a barrier
+        after the restore and after each save.
 
         Each group boundary is a live-observability slice: when progress
         streaming is on (`repro_torch.obs.progress`) a ``slice`` event
@@ -612,6 +622,14 @@ class SweepService:
                     f"(fingerprint {int(state['fingerprint'])} != {fp})")
         view = {k: v.numpy() for k, v in state.items()}
 
+        mesh = _active_mesh(self.mesh)
+        # under a mesh every rank runs the job and gets each group's whole
+        # result, but one rank, the mesh's first, writes the shared
+        # directory: no rank may still read it when that rank first
+        # writes, and none goes on before each write is whole
+        writes = mesh is None or not any(mesh.get_coordinate())
+        if mesh is not None:
+            mesh_barrier(mesh)
         watch_id = progress_id if progress_id is not None else "job"
         dispatched = 0
         with _cache.scoped_counters(self._cache_sink):
@@ -630,7 +648,7 @@ class SweepService:
                 hist, w_fin = _dispatch_group(job_obj, plan.specs,
                                               res_rows, members, key_,
                                               group_epochs, w_init,
-                                              self.drop_prob)
+                                              self.drop_prob, mesh)
                 if self.watchdog is not None:
                     from repro_torch.obs.watchdog import enforce_group
 
@@ -639,7 +657,7 @@ class SweepService:
                         resolved=res_rows, tenant_of=lambda c: tenant,
                         redispatch=lambda amended: _dispatch_group(
                             job_obj, plan.specs, amended, members, key_,
-                            group_epochs, w_init, self.drop_prob))
+                            group_epochs, w_init, self.drop_prob, mesh))
                     for c, e in bad.items():
                         view["diverged"][c] = e
                     for c, k in overrides.items():
@@ -656,9 +674,12 @@ class SweepService:
                 dispatched += 1
                 with self._lock:
                     self._groups_dispatched += 1
-                checkpointer.save(state, step=int(view["done"].sum()),
-                                  extra={"job_fingerprint": int(fp),
-                                         "groups_total": len(group_items)})
+                if writes:
+                    checkpointer.save(state, step=int(view["done"].sum()),
+                                      extra={"job_fingerprint": int(fp),
+                                             "groups_total": len(group_items)})
+                if mesh is not None:
+                    mesh_barrier(mesh)
                 if _progress.progress_enabled():
                     self._publish_slice_event(
                         watch_id, tenant, key_, gi, len(group_items),

@@ -5,13 +5,17 @@ Every group dispatch — a direct `run_sweep` or a coalesced flush of the
 module-level dict keyed on everything that determines the runner:
 
     (engine, M̃, option, buf_len, epochs-bound, drop_prob,
-     mesh fingerprint, objective static key, data signature, fused facet)
+     objective static key, data signature, fused facet)
 
-The JAX package's key, with three changes: the mesh fingerprint is None
-(no mesh until the port's sharding slice), the data signature names each
-leaf's shape, torch dtype and device, and the fused facet is the device
-type of the objective's data (the port has no interpret mode: a CPU
-tensor takes the kernels' plain versions, a CUDA tensor launches them).
+The JAX package's key, with three changes. It holds no mesh
+fingerprint: a runner computes whatever rows it is given, and a sharded
+dispatch wraps the cached runner in the row-sharding wrapper
+(`core.sweep._shard_group_fn`) at every call, so every mesh and world
+shares one runner per key and the cache holds no process group. The data
+signature names each leaf's shape, torch dtype and device, and the fused
+facet is the device type of the objective's data (the port has no
+interpret mode: a CPU tensor takes the kernels' plain versions, a CUDA
+tensor launches them).
 The group bodies (`repro_torch.core.sweep._group_fn`) close over the
 objective's methods only; the data and the rows enter as arguments, so a
 same-key objective's data runs through a runner another instance built.
@@ -117,7 +121,7 @@ _COUNTERS = _Counters()
 _MAX_RUNNERS = 64
 
 _RunnerKey = Tuple  # (engine, M̃, option, buf_len, epochs, drop_prob,
-#                     mesh fingerprint, objective static key,
+#                     objective static key,
 #                     per-data-leaf (shape, dtype, device), fused facet)
 
 
@@ -140,21 +144,15 @@ def _fused_mode_key(fused: bool, obj) -> Optional[str]:
 
 
 def runner_key(engine: str, *, group_epochs: int, total: int, option: int,
-               buf_len: int, drop_prob: float, obj, fused: bool = False,
-               mesh=None) -> _RunnerKey:
+               buf_len: int, drop_prob: float, obj,
+               fused: bool = False) -> _RunnerKey:
     """Everything that determines the runner. The objective's data enters
     the runner as arguments, so only its signatures are keyed (plus
     `obj.runner_static_key()`) — two tenants sweeping same-shape datasets
-    of one objective class on one device share one runner. ``mesh`` must
-    be None (multi-GPU row sharding is a later slice); its fingerprint is
-    then None."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh needs multi-GPU row sharding, which a later slice of "
-            "the port brings")
+    of one objective class on one device share one runner."""
     data_sig = tuple(_leaf_signature(a) for a in obj.data_args())
     return (engine, int(total), int(option), int(buf_len), int(group_epochs),
-            float(drop_prob), mesh, obj.runner_static_key(), data_sig,
+            float(drop_prob), obj.runner_static_key(), data_sig,
             _fused_mode_key(fused, obj))
 
 
@@ -184,16 +182,15 @@ def _counted(fn):
 
 def get_group_runner(engine: str, *, group_epochs: int, total: int,
                      option: int, buf_len: int, drop_prob: float, obj,
-                     fused: bool = False, mesh=None):
+                     fused: bool = False):
     """The runner for one (engine, M̃, option, buf_len, …) group, built at
     most once per key. ``fused=True`` keys and builds the sweep-epoch
     kernel's body instead of the batched one.
 
-    The returned callable takes ``(*obj.data_args(), *row_args)``.
-    ``mesh`` must be None (multi-GPU row sharding is a later slice)."""
+    The returned callable takes ``(*obj.data_args(), *row_args)``."""
     key = runner_key(engine, group_epochs=group_epochs, total=total,
                      option=option, buf_len=buf_len, drop_prob=drop_prob,
-                     obj=obj, fused=fused, mesh=mesh)
+                     obj=obj, fused=fused)
     with _LOCK:
         runner = _RUNNERS.get(key)
         if runner is not None:

@@ -149,14 +149,17 @@ def coalesce(obj: Optional[Objective],
 
 
 def dispatch(obj: Optional[Objective], batch: CoalescedBatch, *, w0=None,
-             drop_prob: float = 0.02,
+             drop_prob: float = 0.02, mesh=None,
              watchdog=None,
              ) -> Tuple[Dict[int, SweepResult], DispatchInfo]:
     """Run every merged group once, demux per-request `SweepResult`s.
 
     Returns ``({request_id: result}, DispatchInfo)``; each result equals
     a standalone `run_sweep` of that request's specs with the same
-    ``w0``/``drop_prob`` (see the module docstring for how exactly).
+    ``w0``/``drop_prob``/``mesh`` (see the module docstring for how
+    exactly). ``mesh`` is an active mesh (`core.sweep._active_mesh`) or
+    None; under one every group is row-sharded over its ``data`` axis and
+    the call is collective.
     Each group dispatches at its natural row count: the port's runners
     take any count without a new runner, so the JAX package's
     width-padding policy has nothing to save here.
@@ -214,7 +217,7 @@ def dispatch(obj: Optional[Objective], batch: CoalescedBatch, *, w0=None,
                          group_epochs=int(group_epochs)):
             hist, w_fin = _dispatch_group(group_obj, specs, resolved,
                                           members, key_, group_epochs,
-                                          w_inits[key_[0]], drop_prob)
+                                          w_inits[key_[0]], drop_prob, mesh)
         if watchdog is not None:
             from repro_torch.obs.watchdog import enforce_group
 
@@ -225,7 +228,7 @@ def dispatch(obj: Optional[Objective], batch: CoalescedBatch, *, w0=None,
                     bisect.bisect_right(offsets, c) - 1].request.tenant,
                 redispatch=lambda amended: _dispatch_group(
                     group_obj, specs, amended, members, key_,
-                    group_epochs, w_inits[key_[0]], drop_prob),
+                    group_epochs, w_inits[key_[0]], drop_prob, mesh),
                 allow_cancel_job=False)
             diverged_flat.update(bad)
             epoch_overrides.update(overrides)

@@ -1,15 +1,36 @@
-"""The ParamDef system of the JAX package's ``sharding/rules.py``: models
-declare parameters as shape + logical axis names + initializer, and
-`init_from_defs` draws them.
+"""Logical-axis sharding rules and the ParamDef system, the port of the JAX
+package's ``sharding/rules.py``.
 
-Only `ParamDef` and `init_from_defs` are ported. The logical-axis to mesh
-mapping waits for the sharding slice, and the JAX package's ``constrain``
-calls are identities on one card, so the port's models drop them.
+Models declare parameters as :class:`ParamDef` trees: shape + logical axis
+names + initializer. `init_from_defs` draws them; the rule table maps the
+logical names onto the axes of a mesh (`logical_to_pspec`), so the same
+declarations plan a one-card run, a (16, 16) ``("data", "model")`` layout
+or a (2, 16, 16) ``("pod", "data", "model")`` one.
+
+A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` with named
+dims (`repro_torch.launch.mesh`), or a plain ``{axis: size}`` mapping: the
+rule functions read only the axis names and sizes, so a 256-rank layout
+can be planned in a process of one. A `PartitionSpec` is the JAX one's
+tuple (``None``, an axis name or a tuple of axis names per tensor dim);
+`defs_to_shardings` turns each into `torch.distributed.tensor`
+placements on the mesh (`NamedSharding`).
+
+Sharding strategy (defaults):
+  * ``embed``-tagged dims (the fsdp dim of most weights) shard over
+    ("pod", "data");
+  * ``mlp`` / ``heads`` / ``vocab`` / ``expert`` dims shard over "model";
+  * batch shards over ("pod", "data"); sequence optionally over "model".
+A dim whose size does not divide the assigned mesh axes is replicated.
+
+The port's models leave the JAX package's ``constrain`` calls out: they
+are identities outside a mesh, and only the dry-run runs a model under
+one. ``defs_to_shape_structs`` waits for the dry-run, its one caller.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,3 +78,164 @@ def init_from_defs(gen: torch.Generator, defs):
     from ``gen`` on its device (a seeded ``torch.Generator``; the numbers
     differ from ``jax.random``'s, the rules do not)."""
     return tree_map(lambda d: _init_one(gen, d), defs, is_leaf=is_param_def)
+
+
+# ---------------------------------------------------------------------------
+# Logical axes -> mesh axes
+# ---------------------------------------------------------------------------
+
+# Logical axis name -> mesh axis (or tuple of mesh axes). None = replicated.
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "seq_shard": "model",          # sequence-parallel KV cache (long context)
+    "vocab": "model",
+    "embed": ("pod", "data"),      # fsdp dim of most weights
+    "embed_no_fsdp": None,
+    "mlp": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "expert": "model",
+    "expert_mlp": None,
+    "cache_kv": None,
+    "layers": None,
+    "conv": None,
+    "state": None,
+    "features": "model",           # logreg feature dim
+}
+
+
+class PartitionSpec(tuple):
+    """Per tensor dim: ``None`` (replicated), a mesh axis name, or a tuple of
+    axis names, as ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """``{axis: size}`` of a named `DeviceMesh` or of a plain mapping."""
+    if isinstance(mesh, Mapping):
+        return {str(a): int(n) for a, n in mesh.items()}
+    names = mesh.mesh_dim_names
+    if not names:
+        raise ValueError("the mesh needs named dims (mesh_dim_names)")
+    return dict(zip(names, (int(n) for n in mesh.shape)))
+
+
+def _axis_size(mesh, mesh_axes) -> int:
+    if mesh_axes is None:
+        return 1
+    if isinstance(mesh_axes, str):
+        mesh_axes = (mesh_axes,)
+    shape = mesh_shape(mesh)
+    n = 1
+    for a in mesh_axes:
+        n *= shape.get(a, 1)
+    return n
+
+
+def _present(mesh, mesh_axes):
+    """Filter a rule target down to axes that exist in this mesh."""
+    if mesh_axes is None:
+        return None
+    if isinstance(mesh_axes, str):
+        mesh_axes = (mesh_axes,)
+    shape = mesh_shape(mesh)
+    kept = tuple(a for a in mesh_axes if a in shape)
+    if not kept:
+        return None
+    return kept if len(kept) > 1 else kept[0]
+
+
+def logical_to_pspec(
+    shape: Sequence[int],
+    axes: Sequence[Optional[str]],
+    mesh,
+    rules: Optional[Dict[str, Any]] = None,
+) -> PartitionSpec:
+    """Map logical axis names to a PartitionSpec, with divisibility fallback:
+    a dim the assigned mesh axes do not divide, or whose axes an earlier dim
+    took, is replicated."""
+    rules = rules or DEFAULT_RULES
+    spec = []
+    used = set()
+    for dim, name in zip(shape, axes):
+        if name is None:
+            spec.append(None)
+            continue
+        target = _present(mesh, rules.get(name))
+        if target is None:
+            spec.append(None)
+            continue
+        t_axes = (target,) if isinstance(target, str) else tuple(target)
+        if dim % _axis_size(mesh, target) != 0 or used & set(t_axes):
+            spec.append(None)        # replicate rather than pad/conflict
+        else:
+            used.update(t_axes)
+            spec.append(target)
+    return PartitionSpec(*spec)
+
+
+def layer_axes_strs(defs):
+    """ParamDef tree (stacked layer params) -> tree of axis-name STRINGS with
+    the leading "layers" dim dropped, e.g. "embed|mlp": one leaf per param,
+    for `sharding.context.constrain_tree`."""
+    def enc(d: ParamDef) -> str:
+        axes = d.axes[1:] if d.axes and d.axes[0] == "layers" else d.axes
+        return "|".join(a or "" for a in axes)
+
+    return tree_map(enc, defs, is_leaf=is_param_def)
+
+
+def spec_to_placements(spec: PartitionSpec, mesh) -> tuple:
+    """`torch.distributed.tensor` placements of a spec, one per mesh dim: a
+    tensor dim ``d`` mapped to mesh axes gives ``Shard(d)`` on each of those
+    mesh dims, in order, and every other mesh dim is ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh_shape(mesh))
+    placements = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        for a in (entry,) if isinstance(entry, str) else (entry or ()):
+            placements[names.index(a)] = Shard(d)
+    return tuple(placements)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and the placements of a tensor on it (the counterpart of
+    ``jax.sharding.NamedSharding``; a leaf of the port's trees)."""
+    mesh: Any
+    placements: Tuple[Any, ...]
+
+
+def defs_to_shardings(defs, mesh, rules=None):
+    """ParamDef tree -> `NamedSharding` tree."""
+    return tree_map(
+        lambda d: NamedSharding(mesh, spec_to_placements(
+            logical_to_pspec(d.shape, d.axes, mesh, rules), mesh)),
+        defs, is_leaf=is_param_def)
+
+
+def batch_pspec(mesh, *, seq_axis: Optional[str] = None) -> PartitionSpec:
+    """PartitionSpec for (batch, seq, ...) activations."""
+    batch = _present(mesh, DEFAULT_RULES["batch"])
+    seq = _present(mesh, DEFAULT_RULES.get(seq_axis)) if seq_axis else None
+    return PartitionSpec(batch, seq)
+
+
+def act_sharding_constraint(x, mesh, spec: PartitionSpec):
+    """``x`` redistributed to ``spec`` on ``mesh`` when it is a `DTensor`;
+    anything else (a plain tensor, no mesh) is returned unchanged."""
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, spec_to_placements(spec, mesh))

@@ -1068,3 +1068,31 @@ def test_sinusoid_table_is_the_cpu_table(gen):
     assert resident.is_cuda
     assert torch.equal(resident.cpu(),
                        encdec._sinusoid_table(1504, 1280, "cpu"))
+
+
+@pytest.mark.parametrize("method", ["topk", "randk", "int8"])
+def test_compression_on_the_card_matches_cpu(gen, method):
+    """The compression operators on the card against the CPU: rand-k keeps
+    the same indices and int8 draws the same noise (the card's
+    `prng.permutation` sort and `prng.uniform`), top-k the same mask."""
+    from repro_torch.core.compression import compressed_update, \
+        init_error_feedback
+
+    cpu = {"a": torch.randn(300, generator=gen, device="cuda").cpu(),
+           "b": torch.randn((64, 33), generator=gen, device="cuda").cpu()}
+    card = {k: v.cuda() for k, v in cpu.items()}
+    key = prng.PRNGKey(7)
+    got, ef_card = compressed_update(card, init_error_feedback(card), method,
+                                     0.1, key.cuda())
+    want, ef_cpu = compressed_update(cpu, init_error_feedback(cpu), method,
+                                     0.1, key)
+    for k in cpu:
+        assert torch.equal(got[k].cpu() != 0, want[k] != 0)
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-6,
+                                   atol=1e-6)
+        torch.testing.assert_close(ef_card.residual[k].cpu(),
+                                   ef_cpu.residual[k], rtol=1e-6, atol=1e-6)
+    if method == "randk":
+        for n in (300, 2112, 5000):
+            assert torch.equal(prng.permutation(key.cuda(), n).cpu(),
+                               prng.permutation(key, n))

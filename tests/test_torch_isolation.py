@@ -94,6 +94,13 @@ OBJECTIVES_SERVER_MODULES = (
     "repro_torch.server.client")
 
 
+# the modules of the sharding slice
+SHARDING_MODULES = (
+    "repro_torch.core.compression", "repro_torch.core.distributed",
+    "repro_torch.sharding.rules", "repro_torch.sharding.context",
+    "repro_torch.launch.mesh")
+
+
 def _assert_checked(modules):
     proc = _run([sys.executable, "-c", _LIST_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
@@ -122,6 +129,10 @@ def test_checks_cover_the_obs_and_service_modules():
 
 def test_checks_cover_the_objectives_and_server_modules():
     _assert_checked(OBJECTIVES_SERVER_MODULES)
+
+
+def test_checks_cover_the_sharding_modules():
+    _assert_checked(SHARDING_MODULES)
 
 
 def test_source_never_names_jax_or_repro():

@@ -249,8 +249,10 @@ def test_cache_keys_separate_static_dims(objs):
     same = LogisticRegression(po.X, po.y, po.l2, device="cpu")
     assert cache.runner_key("asysvrg", **{**k, "obj": same}) == base
     fused = cache.runner_key("asysvrg", **k, fused=True)
-    assert fused[-1] == "cpu" and base[-1] is None and base[6] is None
-    assert base[8] == (((101, 2048), "float32", "cpu"),
+    # no mesh slot: a sharded dispatch wraps the runner of this same key
+    assert fused[-1] == "cpu" and base[-1] is None
+    assert base[6] == po.runner_static_key() and len(base) == 9
+    assert base[7] == (((101, 2048), "float32", "cpu"),
                        ((101,), "float32", "cpu"), ((), "float", None))
 
 
@@ -272,10 +274,15 @@ def test_clear_cache_and_lru_bound(objs, monkeypatch):
 
 
 def test_mesh_raises(objs):
+    """A mesh that is not a named `DeviceMesh` is refused by the service and
+    by `run_sweep` (a real one row-shards: tests/test_torch_distributed.py).
+    The runner cache takes no mesh: a sharded dispatch wraps its runner."""
     _, po = objs
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         SweepService(po, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        psw.run_sweep(po, 1, _tiny(), mesh=object())
+    with pytest.raises(TypeError, match="mesh"):
         cache.get_group_runner("asysvrg", group_epochs=1, total=8, option=2,
                                buf_len=4, drop_prob=0.0, obj=po,
                                mesh=object())

@@ -15,6 +15,7 @@ from repro.core.objective import LogisticRegression as JaxLogReg
 from repro_torch.core import sweep as psw
 from repro_torch.core.objective import LogisticRegression
 from repro_torch.service import SweepService
+from repro_torch.sharding.context import mesh_context
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -90,18 +91,25 @@ def test_short_row_equals_shorter_run(runs):
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object())])
 def test_unported_options_raise(runs, kwargs):
-    """What the port still lacks raises: a mesh (multi-GPU row sharding),
-    here through the sweep service's entry point. ``telemetry=True``, which
-    raised before the obs slice, runs now (tests/test_torch_obs.py)."""
+    """A mesh runs since the sharding slice (tests/test_torch_distributed.py);
+    what is not a named `DeviceMesh` is refused at the sweep service's entry
+    point. ``telemetry=True``, which raised before the obs slice, runs now
+    (tests/test_torch_obs.py)."""
     _, po, _, _ = runs
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         SweepService(po, **kwargs)
 
 
 def test_mesh_raises(runs):
+    """``run_sweep`` refuses a mesh that is not a named `DeviceMesh`, given
+    explicitly or ambiently; a real mesh row-shards the groups
+    (tests/test_torch_distributed.py)."""
     _, po, _, _ = runs
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         psw.run_sweep(po, 1, [psw.SweepSpec()], mesh=object())
+    with mesh_context({"data": 2}):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            psw.run_sweep(po, 1, [psw.SweepSpec()])
 
 
 @pytest.mark.parametrize("kwargs", [dict(algo="svrg", tau=3),
