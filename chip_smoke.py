@@ -170,7 +170,21 @@ an encoder's over its valid frames or a cross-attention):
   * whisper-large-v3 at full depth and llama-3.2-vision-11b at 5 layers,
     float32 params, bf16 activations, rematerialised, batch 2, sequence
     2048: 2 fused SVRG steps against 2 unfused ones, one K1 launch per
-    leaf, no K4.
+    leaf, no K4;
+
+and the dry-run (`repro_torch.launch.dryrun`, phase `dryrun`):
+
+  * gemma3-4b traced on fake tensors at the one-device mesh at the
+    `train` phase's shape (12 layers, batch 2, sequence 2048, unfused SVRG,
+    one microbatch), the `serve` phase's prefill (34 layers, batch 4,
+    prompt 2048, bf16) and one decode token from that cache, no kernel
+    launched; then each run once on the card from
+    `reset_peak_memory_stats` with random weights from a seed: the
+    estimate within 10% of `max_memory_allocated`, the real prefill 34
+    `flash_attention` launches;
+  * gemma3-4b's train_4k cell over a fake world of 256 ranks, the (16, 16)
+    mesh, full size, in a process of its own (no card visible to it) run
+    after every timed phase: it must come back `ok`.
 
 `sweep_epoch` is held against its plain version at the main path's shape
 (the 4-row rcv1 group, 40480 inner updates); its other cases (Hogwild!,
@@ -3488,6 +3502,161 @@ def phase_train_card_vs_cpu():
         raise AssertionError(f"train_card_vs_cpu launch counts {counts}")
 
 
+# phase `dryrun`: the dry-run's memory estimate at HOST_MESH against the
+# card's peak, at the `train` phase's shape and the `serve` phase's prefill
+# and one decode token from its cache; and one full-size cell over the fake
+# (16, 16) world, in a process of its own, last
+DRYRUN_TOL = 0.10               # |estimate - max_memory_allocated| / measured
+DRYRUN_CELL_DEADLINE_S = 300.0  # the fake-world cell, from its start
+DRYRUN_OUT = ROOT / "build" / "dryrun_smoke"
+
+
+def run_dryrun_cell():
+    """Run ``python -m repro_torch.launch.dryrun`` on gemma3-4b train_4k
+    over the fake (16, 16) world, with no card visible to it (its tensors
+    are fake; it makes its world in its own process), and return its record
+    with its wall time. It runs after every timed phase, alone, so no
+    timing shares the host with it; it is killed at its deadline."""
+    import os
+    import shutil
+
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    DRYRUN_OUT.mkdir(parents=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             SERVE_ARCH, "--shape", "train_4k", "--mesh", "single", "--out",
+             str(DRYRUN_OUT)], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=DRYRUN_CELL_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"dryrun: the fake-world cell ran past "
+                             f"{DRYRUN_CELL_DEADLINE_S} s") from None
+    path = DRYRUN_OUT / f"single__{SERVE_ARCH}__train_4k.json"
+    if not path.exists():
+        raise AssertionError(f"dryrun: no record (exit {proc.returncode}): "
+                             f"{(proc.stdout + proc.stderr)[-2000:]}")
+    rec = json.loads(path.read_text())
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def phase_dryrun():
+    """Trace gemma3-4b at HOST_MESH at three shapes (the `train` phase's:
+    12 layers, batch 2, sequence 2048, unfused SVRG, one microbatch; the
+    `serve` phase's prefill: 34 layers, batch 4, prompt 2048, bf16; one
+    decode token from that cache), no launch; then run each once on the
+    card from `reset_peak_memory_stats` with random weights from a seed:
+    the estimate within DRYRUN_TOL of `max_memory_allocated` (both with
+    the step's inputs; the allocator's 512-byte rounding counted), the real
+    prefill 34 flash_attention launches. Then the full-size cell over the
+    fake (16, 16) world runs (`run_dryrun_cell`) and must come back ok."""
+    from repro_torch.config import ShapeConfig, SVRGConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.factory import build_model
+    from repro_torch.sharding.rules import init_from_defs
+    from repro_torch.train.state import init_train_state, make_train_step
+
+    host = dryrun.cell_mesh("host")
+    train_cfg = get_config(TRAIN_ARCH).with_overrides(num_layers=TRAIN_LAYERS)
+    serve_cfg = get_config(SERVE_ARCH)
+    shapes = {
+        "train": (train_cfg, ShapeConfig("train", "train", TRAIN_SEQ,
+                                         TRAIN_BATCH)),
+        "prefill": (serve_cfg, ShapeConfig("prefill", "prefill",
+                                           SERVE_PROMPT, SERVE_BATCH)),
+        "decode": (serve_cfg, ShapeConfig("decode", "decode", SERVE_PROMPT,
+                                          SERVE_BATCH))}
+    estimate, trace_s = {}, {}
+    reset_counts()
+    for name, (cfg, shape) in shapes.items():
+        t0 = time.perf_counter()
+        estimate[name] = dryrun.trace_cell(cfg, shape, host, "svrg",
+                                           microbatches=1)["memory"]
+        trace_s[name] = time.perf_counter() - t0
+    trace_counts = read_counts()
+
+    measured = {}
+    release_memory()
+    base = torch.cuda.memory_allocated()
+    bundle = build_model(train_cfg, "cuda")
+    tcfg = TrainConfig(optimizer="svrg", learning_rate=1e-3, microbatches=1,
+                       svrg=SVRGConfig())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(gen, bundle, tcfg)
+    batch = bundle.make_inputs(TRAIN_BATCH, TRAIN_SEQ, gen)
+    step = make_train_step(bundle, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    measured["train"] = torch.cuda.max_memory_allocated() - base
+    train_loss = float(metrics["loss"])
+    del state, batch, metrics, step, bundle
+    release_memory()
+
+    base = torch.cuda.memory_allocated()
+    bundle = build_model(serve_cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = bundle.cast(init_from_defs(gen, bundle.param_defs))
+    batch = bundle.make_inputs(SERVE_BATCH, SERVE_PROMPT, gen)
+    release_memory()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache = bundle.prefill_fn(params, batch, SERVE_PROMPT)
+    torch.cuda.synchronize()
+    measured["prefill"] = torch.cuda.max_memory_allocated() - base
+    prefill_counts = read_counts()
+    tokens = logits.argmax(-1).to(torch.int32)
+    del logits, batch
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache = bundle.decode_fn(params, cache, tokens, SERVE_PROMPT - 1)
+    torch.cuda.synchronize()
+    measured["decode"] = torch.cuda.max_memory_allocated() - base
+    finite = bool(torch.isfinite(logits).all()) and np.isfinite(train_loss)
+    del params, cache, logits, tokens, bundle
+    release_memory()
+
+    gap = {name: (estimate[name]["peak_allocator_bytes"] - measured[name])
+           / measured[name] for name in shapes}
+    fake = run_dryrun_cell()
+    rec = dict(phase="dryrun", arch=SERVE_ARCH,
+               estimate_gb={n: e["peak_allocator_bytes"] / 1e9
+                            for n, e in estimate.items()},
+               estimate_exact_gb={n: e["peak_per_device_bytes"] / 1e9
+                                  for n, e in estimate.items()},
+               argument_gb={n: e["argument_bytes"] / 1e9
+                            for n, e in estimate.items()},
+               measured_gb={n: m / 1e9 for n, m in measured.items()},
+               rel_gap=gap, tolerance=DRYRUN_TOL, trace_s=trace_s,
+               trace_launches=trace_counts, prefill_launches=prefill_counts,
+               train_loss=train_loss,
+               fake_world_cell={k: fake.get(k) for k in (
+                   "status", "error", "num_devices", "memory", "cost",
+                   "collectives", "t_trace_s", "wall_s", "params_total",
+                   "model_flops")})
+    emit(**rec)
+    if any(trace_counts.values()):
+        raise AssertionError(f"dryrun: the traces launched {trace_counts}")
+    if prefill_counts["flash_attention"] != serve_cfg.num_layers:
+        raise AssertionError(f"dryrun: the real prefill launched "
+                             f"{prefill_counts}")
+    if not finite:
+        raise AssertionError("dryrun: a real step gave non-finite values")
+    bad = {n: g for n, g in gap.items() if abs(g) > DRYRUN_TOL}
+    if bad:
+        raise AssertionError(f"dryrun: estimates off the card's peaks: {bad} "
+                             f"(estimate {rec['estimate_gb']}, measured "
+                             f"{rec['measured_gb']})")
+    if fake.get("status") != "ok":
+        raise AssertionError(f"dryrun: the fake-world cell: {fake}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only on "
@@ -3627,6 +3796,10 @@ def main() -> int:
     t0 = time.perf_counter()
     train_encdec_vlm = phase_train_encdec_vlm()
     emit(phase="train_encdec_vlm_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    phase_dryrun()
+    emit(phase="dryrun_done", seconds=time.perf_counter() - t0)
 
     replaces = {"svrg_update": "src/repro/kernels/svrg_update/kernel.py:23",
                 "logreg_grad": "src/repro/kernels/logreg_grad/kernel.py:31",

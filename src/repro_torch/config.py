@@ -1,9 +1,10 @@
 """Configuration the port reads: its own copies of the JAX package's
 `ModelConfig`, `SVRGConfig`, `TrainConfig`, `ServeConfig` and
 `HardwareSpec`, field for field with the same defaults (the port imports
-nothing of that package), and the H100's `HardwareSpec`, which the
-port's roofline model uses by default. The shape and mesh configs are not
-copied."""
+nothing of that package), the H100's `HardwareSpec`, which the port's
+roofline model uses by default, and the dry-run's input-shape grid
+(`ShapeConfig`, `SHAPE_GRID`) and meshes (`MeshConfig`) with the JAX
+package's values."""
 from __future__ import annotations
 
 import dataclasses
@@ -107,6 +108,54 @@ class ModelConfig:
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the dry-run's grid)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
+
+SHAPE_GRID: Dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
+
+
+# ---------------------------------------------------------------------------
+# Mesh
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+HOST_MESH = MeshConfig((1, 1), ("data", "model"))   # one device
 
 
 @dataclass(frozen=True)

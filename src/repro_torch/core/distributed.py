@@ -30,7 +30,8 @@ import torch.distributed as dist
 from repro_torch import prng
 from repro_torch.config import SVRGConfig
 from repro_torch.core.compression import ErrorFeedbackState, compressed_update
-from repro_torch.sharding.context import all_gather, collective_device
+from repro_torch.sharding.context import (all_gather, collective_device,
+                                         grad_placed)
 from repro_torch.utils.tree import (
     tree_add, tree_leaves, tree_map, tree_scale, tree_sub,
     tree_unflatten_like, tree_zeros_like)
@@ -52,12 +53,15 @@ def value_and_grad(loss_fn: Callable):
     """``f(params, batch) -> (loss, grads)``: the loss (detached) and its
     gradient with respect to every leaf of ``params``, a tree of the same
     structure. ``params`` are not modified; the gradient is taken with
-    autograd enabled whatever the caller's grad mode."""
+    autograd enabled whatever the caller's grad mode. Under a mesh each
+    gradient is placed as its parameter (`sharding.context.grad_placed`).
+    """
 
     def f(params, batch):
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
-            loss = loss_fn(tree_unflatten_like(params, leaves), batch)
+            loss = loss_fn(tree_unflatten_like(
+                params, [grad_placed(x) for x in leaves]), batch)
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), tree_unflatten_like(params, grads)
 

@@ -6,8 +6,8 @@ any (step, shard) pair regenerates identical data — restart-safe without
 storing a cursor beyond the step number, and shardable across data-parallel
 hosts by slicing the global batch. The interface (``batch_at(step)``)
 matches what a real tokenized-corpus loader would expose. Batches are numpy;
-the train loop moves them to its device. ``lm_batch_specs`` (the dry-run's
-shape-only batch) waits for ``launch/dryrun``.
+the train loop moves them to its device. ``lm_batch_specs`` is the
+dry-run's shape-only batch (`TensorSpec`s).
 """
 from __future__ import annotations
 
@@ -70,3 +70,20 @@ class SyntheticLMDataset:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def lm_batch_specs(global_batch: int, seq_len: int, mesh=None, rules=None
+                   ) -> Dict:
+    """`TensorSpec` stand-ins for an LM training batch (the dry-run path):
+    tokens and targets int32, mask float32, each [global_batch, seq_len]
+    placed by `batch_pspec` on ``mesh`` (``rules`` is unused, as in the JAX
+    package)."""
+    import torch
+
+    from repro_torch.sharding.rules import batch_pspec, spec_on
+
+    spec = batch_pspec(mesh) if mesh is not None else None
+    shape = (global_batch, seq_len)
+    return {"tokens": spec_on(shape, torch.int32, spec, mesh),
+            "targets": spec_on(shape, torch.int32, spec, mesh),
+            "mask": spec_on(shape, torch.float32, spec, mesh)}

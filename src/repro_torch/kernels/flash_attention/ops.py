@@ -28,10 +28,23 @@ gradient, `gqa_flash` raises rather than return attention through which no
 gradient would flow. Training attends through `models.layers.attention`.
 Launches count in ``gqa_flash.launches`` and, per route, in
 ``gqa_flash.launches_by_route``.
+
+Fake tensors (``torch._subclasses.fake_tensor``, the dry-run's) take the
+custom op ``torch.ops.repro_torch.flash_attention``, whose fake
+implementation makes the output's shape, dtype and device and nothing
+else: no launch (none counted), no pointer read, and never the plain
+attention, whose ``[B, N, Sq, Sk]`` scores the kernel never holds. Its
+FLOPs, 4·B·N·h per unmasked (query, key) pair, are registered with
+``torch.utils.flop_counter``. A `DTensor` of fake shards (the dry-run
+over a fake world) runs that op on rank 0's shards: its keys and values
+gathered over any sequence sharding first, and only the kv heads its
+query heads read.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils import flop_counter
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import kernel
@@ -66,6 +79,65 @@ def _check_kernel_inputs(q, k, v) -> None:
                              "give 16-byte aligned rows of contiguous heads")
 
 
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: under the causal mask and
+    ``window`` (0 = global) with Sk = Sq; not causal, every pair."""
+    if not causal:
+        return Sq * Sk
+    if window <= 0 or window >= Sq:
+        return Sq * (Sq + 1) // 2
+    return window * (window + 1) // 2 + (Sq - window) * window
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int) -> torch.Tensor:
+    """The flash-attention kernel as a torch op; called on fake tensors
+    (the dry-run), where only `_fake_flash` runs."""
+    return _run(q, k, v, causal, window)
+
+
+@flash_attention_op.register_fake
+def _fake_flash(q, k, v, causal, window):
+    return q.new_empty(q.shape)
+
+
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                 out_shape=None, **kwargs) -> int:
+    B, Sq, N, h = q_shape
+    return 4 * B * N * h * attention_pairs(Sq, k_shape[1], causal, window)
+
+
+if torch.ops.repro_torch.flash_attention not in flop_counter.flop_registry:
+    flop_counter.register_flop_formula(
+        torch.ops.repro_torch.flash_attention)(_flash_flops)
+
+
+def _sharded_flash(q, k, v, causal: bool, window: int):
+    """The dry-run's attention over `DTensor`s of fake shards: rank 0's
+    query shard against the keys and values it reads, through the fake op;
+    the output placed as q. On each mesh dim k and v follow q's batch or
+    head sharding and are gathered otherwise (a sequence-sharded k or v is
+    all-gathered: every query reads every key)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not is_fake(q.to_local()):
+        raise RuntimeError("gqa_flash: sharded attention is the dry-run's, "
+                           "on fake tensors only")
+    placements = [qp if qp == Shard(0) or (qp == Shard(2) and kp == Shard(2))
+                  else Replicate()
+                  for qp, kp in zip(q.placements, k.placements)]
+    mesh = q.device_mesh
+    ql = q.to_local()
+    G = q.shape[2] // k.shape[2]
+    needed = -(-ql.shape[2] // G)      # kv heads rank 0's query heads read
+    kl, vl = (t.redistribute(mesh, placements).to_local()[:, :, :needed]
+              for t in (k, v))
+    out = flash_attention_op(ql, kl, vl, causal, int(window))
+    return DTensor.from_local(out, mesh, q.placements, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
 def gqa_flash(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,Sq,N,h], k/v [B,Sk,K,h] -> [B,Sq,N,h] in q's dtype."""
     B, Sq, N, h = q.shape
@@ -78,6 +150,20 @@ def gqa_flash(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"gqa_flash: {Sq} queries over {Sk} keys is for "
                          "non-causal attention without a window; causal or "
                          "windowed attention takes as many keys as queries")
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _sharded_flash(q, k, v, causal, window)
+    if is_fake(q):
+        return flash_attention_op(q, k, v, causal, int(window))
+    return _run(q, k, v, causal, window)
+
+
+def _run(q, k, v, causal: bool, window: int):
+    """`gqa_flash` on real tensors: the plain version on the CPU, the
+    kernel on the card."""
+    B, Sq, N, h = q.shape
+    K = k.shape[2]
     if dispatch.route(q, k, v) == dispatch.REFERENCE:
         G = N // K
         qt = q.transpose(1, 2)                              # [B,N,S,h]

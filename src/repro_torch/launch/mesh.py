@@ -39,7 +39,10 @@ def _world(size: int, device_type: str, what: str) -> None:
     if device_type not in _BACKENDS:
         raise ValueError(f"device_type must be one of {sorted(_BACKENDS)}, "
                          f"got {device_type!r}")
-    if device_type == "cuda" and not torch.cuda.is_available():
+    # a fake world (the dry-run's: `launch.dryrun.fake_world`) holds fake
+    # tensors only, so it needs no card
+    fake = dist.is_initialized() and dist.get_backend() == "fake"
+    if device_type == "cuda" and not fake and not torch.cuda.is_available():
         raise RuntimeError(f"{what}: no CUDA device; pass device_type='cpu' "
                            "to build the mesh on the CPU")
     if not dist.is_initialized():
@@ -55,7 +58,7 @@ def _world(size: int, device_type: str, what: str) -> None:
     if dist.get_world_size() < size:
         raise RuntimeError(f"{what} needs {size} ranks; the world has "
                            f"{dist.get_world_size()}")
-    if device_type == "cuda":
+    if device_type == "cuda" and not fake:
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
 
 

@@ -36,12 +36,15 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._guards import detect_fake_mode
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention.ops import gqa_flash
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tf
+from repro_torch.sharding.context import constrain, placed, write, zeros
 from repro_torch.sharding.rules import ParamDef
 
 NEG_POS = -(1 << 30)      # the position of a padded frame
@@ -74,13 +77,19 @@ def _sinusoid_table(n: int, dim: int, device) -> torch.Tensor:
     decode step indexes its device's copy instead of copying a table to
     the card for every token."""
     device = torch.device(device)
-    cpu = _TABLES.get((dim, torch.device("cpu")))
-    if cpu is None or cpu.shape[0] < n:
-        rows = -(-max(n, 1) // _TABLE_BLOCK) * _TABLE_BLOCK
-        cpu = _sinusoid(torch.arange(rows, dtype=torch.int32)[None], dim)[0]
-        for key in [k for k in _TABLES if k[0] == dim]:
-            del _TABLES[key]
-        _TABLES[(dim, torch.device("cpu"))] = cpu
+    with unset_fake_temporarily():     # a host constant, real in a dry-run
+        cpu = _TABLES.get((dim, torch.device("cpu")))
+        if cpu is None or cpu.shape[0] < n:
+            rows = -(-max(n, 1) // _TABLE_BLOCK) * _TABLE_BLOCK
+            cpu = _sinusoid(torch.arange(rows, dtype=torch.int32)[None],
+                            dim)[0]
+            for key in [k for k in _TABLES if k[0] == dim]:
+                del _TABLES[key]
+            _TABLES[(dim, torch.device("cpu"))] = cpu
+    fake_mode = detect_fake_mode()
+    if fake_mode is not None:
+        # the dry-run: a fake copy on the device, kept by no one
+        return fake_mode.from_tensor(cpu).to(device)
     table = _TABLES.get((dim, device))
     if table is None:
         table = _TABLES[(dim, device)] = cpu.to(device)
@@ -142,7 +151,7 @@ def _positions(B: int, S: int, n_valid: int, device):
     """[B, S] int32: arange(S), with NEG_POS at and past ``n_valid``."""
     pos = torch.arange(S, dtype=torch.int32, device=device)
     pos = torch.where(pos < n_valid, pos, NEG_POS)
-    return pos[None, :].expand(B, S)
+    return placed(pos[None, :].expand(B, S), ("batch", None))
 
 
 # ---------------------------------------------------------------------------
@@ -157,12 +166,13 @@ def enc_seq_padded(cfg: ModelConfig, pad_to: int = 16) -> int:
 
 
 def _enc_block(cfg: ModelConfig, lp: Dict, h, pos, n_keys: int, attend):
+    h = constrain(h, tf.RESIDUAL_AXES)
     x = nn.apply_norm(cfg, h, lp["attn_norm"])
     q, k, v = nn.gqa_project(x, lp["attn"], cfg, cfg.use_qkv_bias)
     out = attend(q, k, v, pos, pos, causal=False, n_keys=n_keys)
     h = h + nn.attn_output(out, lp["attn"], cfg.use_bias)
     x = nn.apply_norm(cfg, h, lp["mlp_norm"])
-    return h + nn.mlp(x, lp["mlp"], cfg)
+    return constrain(h + nn.mlp(x, lp["mlp"], cfg), tf.RESIDUAL_AXES)
 
 
 def encode(cfg: ModelConfig, params, enc_feats, attend=flash_attend):
@@ -197,6 +207,7 @@ def _dec_block(cfg: ModelConfig, lp: Dict, h, pos, enc_out, enc_pos, attend):
     """One decoder layer: causal self-attention, cross-attention to the
     encoder's output, MLP. Returns (h_out, (k, v) of the self-attention,
     (ek, ev) of the cross-attention)."""
+    h = constrain(h, tf.RESIDUAL_AXES)
     x = nn.apply_norm(cfg, h, lp["attn_norm"])
     q, k, v = nn.gqa_project(x, lp["attn"], cfg, cfg.use_qkv_bias)
     out = attend(q, k, v, pos, pos, causal=True, n_keys=k.shape[1])
@@ -211,7 +222,8 @@ def _dec_block(cfg: ModelConfig, lp: Dict, h, pos, enc_out, enc_pos, attend):
                  n_keys=cfg.encoder_seq)
     h = h + nn.attn_output(out, xa, cfg.use_bias)
     x = nn.apply_norm(cfg, h, lp["mlp_norm"])
-    return h + nn.mlp(x, lp["mlp"], cfg), (k, v), (ek, ev)
+    h = constrain(h + nn.mlp(x, lp["mlp"], cfg), tf.RESIDUAL_AXES)
+    return h, (k, v), (ek, ev)
 
 
 def _train_dec_block(cfg, lp, h, pos, enc_out, enc_pos):
@@ -282,17 +294,17 @@ def prefill(cfg: ModelConfig, params, enc_feats, tokens, cache_len: int):
     h = _embed(cfg, params, tokens)
     dt = getattr(torch, cfg.dtype)
     L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    cache = {name: torch.zeros((L, B, K, n, hd), dtype=dt, device=h.device)
-             for name, n in (("k", cache_len), ("v", cache_len), ("xk", Se),
-                             ("xv", Se))}
+    cache = {name: zeros(d.shape, dt, h.device, d.axes)
+             for name, d in cache_defs(cfg, B, cache_len).items()}
     for i in range(L):
         h, (k, v), (ek, ev) = _dec_block(
             cfg, tf._layer(params["dec_blocks"], i), h, pos, enc_out, enc_pos,
             flash_attend)
-        cache["k"][i, :, :, :S] = k.transpose(1, 2)
-        cache["v"][i, :, :, :S] = v.transpose(1, 2)
-        cache["xk"][i] = ek.transpose(1, 2)
-        cache["xv"][i] = ev.transpose(1, 2)
+        at = (i, slice(None), slice(None), slice(0, S))
+        write(cache["k"], at, k.transpose(1, 2))
+        write(cache["v"], at, v.transpose(1, 2))
+        write(cache["xk"], (i,), ek.transpose(1, 2))
+        write(cache["xv"], (i,), ev.transpose(1, 2))
     h = nn.apply_norm(cfg, h, params["final_norm"])
     logits = h[:, -1, :].matmul(params["tok_embed"].T)
     return logits.to(torch.float32), cache

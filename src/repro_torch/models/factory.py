@@ -1,10 +1,11 @@
 """Model factory: ``ModelConfig.family`` -> the family module, bundled as
-uniform (loss_fn, prefill, decode_step, param_defs, cache_defs, make_inputs)
-functions for the train loop and the serve loop; the port of the JAX
-package's ``models/factory.py`` for every family: dense, moe, encdec, vlm,
-hybrid (``rglru``), ssm (``mamba``) and the paper's logistic regression
-(``logreg``: a loss and its inputs, no serve path). ``input_specs`` (the
-dry-run's shape-only batch) waits for ``launch/dryrun``.
+uniform (loss_fn, prefill, decode_step, param_defs, cache_defs,
+make_inputs, input_specs) functions for the train loop, the serve loop and
+the dry-run; the port of the JAX package's ``models/factory.py`` for every
+family: dense, moe, encdec, vlm, hybrid (``rglru``), ssm (``mamba``) and
+the paper's logistic regression (``logreg``: a loss and its inputs, no
+serve path). ``input_specs(shape_cfg, mesh=None)`` is the dry-run's batch:
+`TensorSpec`s, no data.
 """
 from __future__ import annotations
 
@@ -14,9 +15,10 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.core.objective import default_device
-from repro_torch.sharding.rules import ParamDef
+from repro_torch.data.synthetic_lm import lm_batch_specs
+from repro_torch.sharding.rules import ParamDef, batch_pspec, spec_on
 from repro_torch.utils.tree import tree_map
 
 _MODULES = {"dense": "transformer", "moe": "moe", "encdec": "encdec",
@@ -34,6 +36,7 @@ class ModelBundle:
     decode_fn: Optional[Callable]        # (params, cache, tokens, pos) -> (logits, cache)
     cache_defs: Optional[Callable]       # (batch, seq) -> ParamDef dict
     make_inputs: Callable                # (batch, seq, gen) -> concrete batch
+    input_specs: Callable                # (shape_cfg, mesh=None) -> TensorSpec batch
 
 
 def _modality_extra(cfg: ModelConfig) -> Dict:
@@ -44,6 +47,24 @@ def _modality_extra(cfg: ModelConfig) -> Dict:
     if cfg.family == "vlm":
         return {"image_embeds": (cfg.num_image_tokens, cfg.image_embed_dim)}
     return {}
+
+
+def _batch_specs(shapes: Dict, mesh):
+    """{name: (shape, dtype)} -> `TensorSpec`s, each placed by
+    `batch_pspec` on ``mesh`` (the leading dim over the batch axes, unpadded
+    where they do not divide it)."""
+    spec = batch_pspec(mesh) if mesh is not None else None
+    return {name: spec_on(shape, dtype, spec, mesh)
+            for name, (shape, dtype) in shapes.items()}
+
+
+def _lm_input_specs(cfg: ModelConfig, b: int, s: int, mesh=None,
+                    extra: Dict = None):
+    """The JAX package's shape-only ``_lm_inputs``: `lm_batch_specs` and
+    the modality stubs in bf16."""
+    return {**lm_batch_specs(b, s, mesh), **_batch_specs(
+        {name: ((b, *rest), torch.bfloat16)
+         for name, rest in (extra or {}).items()}, mesh)}
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
@@ -106,10 +127,14 @@ def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
     def cache_defs(batch, seq):
         return mod.cache_defs(cfg, batch, seq)
 
+    def input_specs(shape_cfg: ShapeConfig, mesh=None):
+        return _lm_input_specs(cfg, shape_cfg.global_batch, shape_cfg.seq_len,
+                               mesh, extra)
+
     return ModelBundle(cfg=cfg, device=device, param_defs=mod.param_defs(cfg),
                        cast=cast, loss_fn=loss_fn, prefill_fn=prefill_fn,
                        decode_fn=decode_fn, cache_defs=cache_defs,
-                       make_inputs=make_inputs)
+                       make_inputs=make_inputs, input_specs=input_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +164,12 @@ def _build_logreg(cfg: ModelConfig, device: torch.device) -> ModelBundle:
                        + 0.1)
         return {"X": X, "y": y}
 
+    def input_specs(shape_cfg: ShapeConfig, mesh=None):
+        b = shape_cfg.global_batch
+        return _batch_specs({"X": ((b, cfg.num_features), torch.float32),
+                             "y": ((b,), torch.float32)}, mesh)
+
     return ModelBundle(cfg=cfg, device=device, param_defs=defs,
                        cast=lambda params: params, loss_fn=loss_fn,
                        prefill_fn=None, decode_fn=None, cache_defs=None,
-                       make_inputs=make_inputs)
+                       make_inputs=make_inputs, input_specs=input_specs)

@@ -11,8 +11,10 @@ Training attends here too, as the JAX package's training block does
 (`models.transformer.hidden_states`): the flash-attention kernel has no
 backward. ``lm_loss`` is the chunked cross-entropy of the training loss.
 
-The JAX package's sharding constraints are identities on one card and are
-dropped.
+The JAX package's sharding calls sit at its sites
+(`sharding.context`): under a mesh (the dry-run) they place the
+activations as the JAX package's do; on plain tensors they return their
+input, so a one-card run computes the same ops.
 """
 from __future__ import annotations
 
@@ -24,6 +26,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
+from repro_torch.sharding.context import (constrain, constrain_heads_or_seq,
+                                         by_query_shard, follow_seq,
+                                         gather_seq, local_len,
+                                         logsumexp_last, merge, rows_matmul,
+                                         split_heads, take_along_last,
+                                         unflatten)
 
 NEG_INF = -1e30
 
@@ -125,10 +133,21 @@ def attention(q, k, v, pos_q, pos_k, *, causal: bool = True,
     B, Q, N, h = q.shape
     K = k.shape[2]
     G = N // K
-    qg = q.reshape(B, Q, K, G, h)
-    if Q <= chunk_q:
-        bias = _mask_bias(pos_q, pos_k, causal, window, torch.float32)
-        return _attend_block(qg, k, v, bias, softcap).reshape(B, Q, N, h)
+    if Q > 1:
+        # shard the f32 score tensors: by heads when divisible, else by seq
+        q = constrain_heads_or_seq(q, "heads")
+        k = constrain_heads_or_seq(k, "kv_heads")
+        v = constrain_heads_or_seq(v, "kv_heads")
+        # every query reads every key: sequence-sharded k, v are gathered
+        k, v = gather_seq(k), gather_seq(v)
+    qg = split_heads(q, K)
+    # queries sharded over the mesh are chunked by rank: each rank's block
+    # alone bounds its score buffer
+    if local_len(qg, 1) <= chunk_q:
+        bias = _mask_bias(follow_seq(pos_q, qg), pos_k, causal, window,
+                          torch.float32)
+        return merge(by_query_shard(_attend_block, qg, k, v, bias, softcap),
+                     2)
     if Q % chunk_q:
         raise ValueError(f"attention: {Q} queries are not a multiple of "
                          f"chunk_q {chunk_q}")
@@ -137,13 +156,12 @@ def attention(q, k, v, pos_q, pos_k, *, causal: bool = True,
         bias = _mask_bias(pos_q[:, i:i + chunk_q], pos_k, causal, window,
                           torch.float32)
         outs.append(_attend_block(qg[:, i:i + chunk_q], k, v, bias, softcap))
-    return torch.cat(outs, dim=1).reshape(B, Q, N, h)
+    return merge(torch.cat(outs, dim=1), 2)
 
 
 def project(x, w, b=None):
     """x [B,S,D] @ w [D,n,h] (+ b [n,h]) -> [B,S,n,h], contiguous."""
-    B, S, D = x.shape
-    y = x.reshape(B * S, D).matmul(w.reshape(D, -1)).view(B, S, *w.shape[1:])
+    y = unflatten(rows_matmul(x, merge(w, 1)), 2, w.shape[1:])
     return y if b is None else y + b
 
 
@@ -154,9 +172,7 @@ def gqa_project(x, p: Dict, cfg: ModelConfig, use_bias: bool):
 
 
 def attn_output(out, p: Dict, use_bias: bool):
-    B, S, N, h = out.shape
-    y = out.reshape(B * S, N * h).matmul(p["wo"].reshape(N * h, -1))
-    y = y.view(B, S, -1)
+    y = rows_matmul(merge(out, 2), merge(p["wo"], 0))
     if use_bias:
         y = y + p["bo"]
     return y
@@ -178,13 +194,15 @@ def _act(name: str, x):
 
 def mlp(x, p: Dict, cfg: ModelConfig):
     if cfg.glu:
-        h = _act(cfg.activation, x.matmul(p["w_gate"])) * x.matmul(p["w_up"])
+        h = _act(cfg.activation, rows_matmul(x, p["w_gate"])) \
+            * rows_matmul(x, p["w_up"])
     else:
-        h = x.matmul(p["w_up"])
+        h = rows_matmul(x, p["w_up"])
         if cfg.use_bias:
             h = h + p["b_up"]
         h = _act(cfg.activation, h)
-    y = h.matmul(p["w_down"])
+    h = constrain(h, ("batch", None, "mlp"))
+    y = rows_matmul(h, p["w_down"])
     if cfg.use_bias:
         y = y + p["b_down"]
     return y
@@ -199,11 +217,14 @@ def _chunk_nll(h, embed, t, m, softcap: float):
     (`F.linear`'s backward gives the embedding's gradient contiguous, as
     the fused update's kernel reads it; an einsum's comes back
     transposed.)"""
-    logits = F.linear(h, embed).to(torch.float32)
+    # constrain inside the chunk, so the embedding's gradient per chunk
+    # keeps the vocab sharding (else it is a replicated f32 [V, D])
+    emb = constrain(embed, ("vocab", None))
+    logits = rows_matmul(h, emb, linear=True).to(torch.float32)
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, t[..., None].to(torch.int64))[..., 0]
+    lse = logsumexp_last(logits)
+    gold = take_along_last(logits, t)
     return ((lse - gold) * m).sum()
 
 

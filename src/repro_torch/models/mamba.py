@@ -25,9 +25,12 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tf
 from repro_torch.models.rglru import _causal_conv, chunked, scan, softplus
+from repro_torch.sharding.context import constrain, write
 from repro_torch.sharding.rules import ParamDef
 
 CHUNK = 256
+# channel sharding over the `model` mesh axis through the "mlp" rule
+RESIDUAL_AXES = ("batch", None, "mlp")
 
 
 def param_defs(cfg: ModelConfig) -> Dict:
@@ -81,13 +84,15 @@ def selective_scan(x, lp: Dict, cfg: ModelConfig, h0=None):
 
     The SSM parameters (dA, dBx, C) are computed per chunk inside the
     chunk's body, so no [B, S, Di, N] tensor is ever made (4.3 GB per
-    layer in float32 at falcon-mamba's width, batch 4, 2048 tokens)."""
+    layer in float32 at falcon-mamba's width, batch 4, 2048 tokens).
+    Channels shard over `model` under a mesh (constrained here)."""
     B, S, Di = x.shape
     if h0 is None:
         h0 = torch.zeros((B, Di, cfg.ssm_state), dtype=torch.float32,
                          device=x.device)
 
     def chunk_body(h_prev, x_c):
+        x_c = constrain(x_c, ("batch", None, "mlp"))
         dA, dBx, C = _ssm_params(x_c, lp, cfg)
         P, Ss = scan(dA, dBx)
         hs = Ss + P * h_prev[:, None, :, :]        # states at every position
@@ -112,8 +117,17 @@ def _mamba_block(cfg: ModelConfig, lp: Dict, h, conv_state=None,
     return h + y.matmul(lp["out_proj"]), (new_conv, h_last)
 
 
+def _layer_block(cfg: ModelConfig, lp: Dict, h):
+    """`_mamba_block` with the residual placed on the mesh on both sides."""
+    h = constrain(h, RESIDUAL_AXES)
+    out, st = _mamba_block(cfg, lp, h)
+    # constrain the OUTPUT too: the backward pass keeps each layer's
+    # output, which an unconstrained one would keep replicated on D
+    return constrain(out, RESIDUAL_AXES), st
+
+
 def _train_block(cfg: ModelConfig, lp: Dict, h):
-    return _mamba_block(cfg, lp, h)[0]
+    return _layer_block(cfg, lp, h)[0]
 
 
 def hidden_states(cfg: ModelConfig, params, tokens, collect_state=False):
@@ -124,7 +138,7 @@ def hidden_states(cfg: ModelConfig, params, tokens, collect_state=False):
     convs, ssms = [], []
     for lp in tf._unstack(params["blocks"], cfg.num_layers):
         if collect_state:
-            h, (conv, ssm) = _mamba_block(cfg, lp, h)
+            h, (conv, ssm) = _layer_block(cfg, lp, h)
             convs.append(conv)
             ssms.append(ssm)
         elif cfg.remat == "full":
@@ -176,8 +190,8 @@ def decode_step(cfg: ModelConfig, params, cache: Dict, tokens, pos: int):
         h, (conv, ssm) = _mamba_block(
             cfg, tf._layer(params["blocks"], i), h,
             conv_state=cache["conv"][i], ssm_state=cache["ssm"][i])
-        cache["conv"][i] = conv.to(cache["conv"].dtype)
-        cache["ssm"][i] = ssm
+        write(cache["conv"], (i,), conv.to(cache["conv"].dtype))
+        write(cache["ssm"], (i,), ssm)
     h = nn.apply_norm(cfg, h, params["final_norm"])
     logits = h[:, 0, :].matmul(tf.unembed(cfg, params).T)
     return logits.to(torch.float32), cache

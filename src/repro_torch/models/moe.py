@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tf
+from repro_torch.sharding.context import constrain, write, zeros
 from repro_torch.sharding.rules import ParamDef
 
 CAPACITY_FACTOR = 1.25
@@ -136,9 +137,12 @@ def route(xg, router, cfg: ModelConfig) -> Routing:
     topv, topi = top_k(probs, k)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
-    counts = torch.zeros((B, n, 1, E), dtype=torch.float32, device=xg.device)
-    dispatch = torch.zeros((B, n, Sg, E, C), dtype=xg.dtype, device=xg.device)
-    combine = torch.zeros_like(dispatch)
+    # placed as the routing groups are (one shard of each under a mesh)
+    counts = zeros((B, n, 1, E), torch.float32, xg.device,
+                   ("batch", "seq_shard", None, None))
+    dispatch, combine = (zeros((B, n, Sg, E, C), xg.dtype, xg.device,
+                               ("batch", "seq_shard", None, None, None))
+                         for _ in range(2))
     for r in range(k):
         m = F.one_hot(topi[..., r], E).to(torch.float32)      # [B,n,Sg,E]
         pos = torch.cumsum(m, dim=2) - m + counts              # queue position
@@ -160,18 +164,25 @@ def moe_ffn(x, p: Dict, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,D] -> (y [B,S,D], aux_loss float32 scalar): routing groups of
     `group_size` tokens kept as their own dim [B, n, Sg, ...] (never mixed
     across batch rows), the experts as batched products over the
-    capacity-padded ``[E, B, n, C, D]`` dispatch."""
+    capacity-padded ``[E, B, n, C, D]`` dispatch. Under a mesh the expert
+    tensors are constrained to (expert→model, batch→data)."""
     B, S, D = x.shape
     E = cfg.num_experts
     Sg = group_size(S)
     xg = x.reshape(B, S // Sg, Sg, D)
     r = route(xg, p["router"], cfg)
-    xin = torch.einsum("bnsec,bnsd->ebncd", r.dispatch, xg)      # [E,B,n,C,D]
+    moe_tok_axes = ("batch", "seq_shard", None, None, None)
+    expert_axes = ("expert", "batch", None, None, None)
+    dispatch = constrain(r.dispatch, moe_tok_axes)
+    combine = constrain(r.combine, moe_tok_axes)
+    xin = torch.einsum("bnsec,bnsd->ebncd", dispatch, xg)        # [E,B,n,C,D]
+    xin = constrain(xin, expert_axes)
     hg = nn._act(cfg.activation,
                  torch.einsum("ebncd,edf->ebncf", xin, p["w_gate"]))
     hu = torch.einsum("ebncd,edf->ebncf", xin, p["w_up"])
     out_e = torch.einsum("ebncf,efd->ebncd", hg * hu, p["w_down"])
-    y = torch.einsum("bnsec,ebncd->bnsd", r.combine, out_e).reshape(B, S, D)
+    out_e = constrain(out_e, expert_axes)
+    y = torch.einsum("bnsec,ebncd->bnsd", combine, out_e).reshape(B, S, D)
 
     if cfg.num_shared_experts > 0:
         sp = p["shared"]
@@ -200,8 +211,9 @@ def _moe_block(cfg: ModelConfig, lp: Dict, h, pos, attend):
 # ---------------------------------------------------------------------------
 
 def _train_moe_block(cfg: ModelConfig, lp: Dict, h, pos):
+    h = tf.constrain(h, tf.RESIDUAL_AXES)
     h, aux, _ = _moe_block(cfg, lp, h, pos, tf.plain_attend)
-    return h, aux
+    return tf.constrain(h, tf.RESIDUAL_AXES), aux
 
 
 def hidden_states(cfg: ModelConfig, params, tokens, positions=None):
@@ -263,15 +275,17 @@ def prefill(cfg: ModelConfig, params, tokens, cache_len: int):
     h = tf.embed_tokens(cfg, params, tokens)
     dense_cfg = dense_config(cfg)
     shape = (cfg.num_layers, B, cfg.num_kv_heads, cache_len, cfg.head_dim)
-    cache = {name: torch.zeros(shape, dtype=getattr(torch, cfg.dtype),
-                               device=h.device) for name in ("k", "v")}
+    axes = cache_defs(cfg, B, cache_len)["k"].axes
+    cache = {name: zeros(shape, getattr(torch, cfg.dtype), h.device, axes)
+             for name in ("k", "v")}
     for i, (lp, is_moe) in enumerate(_serve_layers(cfg, params)):
         if is_moe:
             h, _, (k, v) = _moe_block(cfg, lp, h, pos, tf.flash_attend)
         else:
             h, (k, v) = tf.block_apply(dense_cfg, lp, h, pos, 0)
-        cache["k"][i, :, :, :S] = k.transpose(1, 2)
-        cache["v"][i, :, :, :S] = v.transpose(1, 2)
+        at = (i, slice(None), slice(None), slice(0, S))
+        write(cache["k"], at, k.transpose(1, 2))
+        write(cache["v"], at, v.transpose(1, 2))
     h = nn.apply_norm(cfg, h, params["final_norm"])
     logits = h[:, -1, :].matmul(tf.unembed(cfg, params).T)
     return logits.to(torch.float32), cache

@@ -18,8 +18,9 @@ attention in training (the kernel has no backward), and in plain torch
 over a RING-BUFFER cache of ``min(local_window, cache_len)`` slots at
 decode: constant memory in the sequence length.
 
-The JAX package's sharding constraints are identities on one card and are
-dropped.
+Under a mesh (the dry-run) the residual stream and the recurrent
+channels are placed at the JAX package's sites (`sharding.context`); on
+plain tensors those calls return their input.
 """
 from __future__ import annotations
 
@@ -33,9 +34,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tf
+from repro_torch.sharding.context import constrain, merge, unflatten, write
 from repro_torch.sharding.rules import ParamDef
 
 RG_C = 8.0
+# channel sharding over the `model` mesh axis through the "mlp" rule
+RESIDUAL_AXES = ("batch", None, "mlp")
 CHUNK = 512
 
 
@@ -172,8 +176,8 @@ def _block_diag(x, w):
     """x [B,S,W], w [nb,bs,bs] block-diagonal matmul."""
     B, S, W = x.shape
     nb = w.shape[0]
-    xb = x.reshape(B, S, nb, W // nb)
-    return torch.einsum("bsnk,nkj->bsnj", xb, w).reshape(B, S, W)
+    xb = unflatten(x, 2, (nb, W // nb))
+    return merge(torch.einsum("bsnk,nkj->bsnj", xb, w), 2)
 
 
 def _causal_conv(x, conv_w, conv_b, state=None):
@@ -222,6 +226,7 @@ def rg_lru(x, gates_r, gates_i, lam, h0=None):
         h0 = h0.to(torch.float32)
 
     def chunk_body(h_prev, x_c, gr_c, gi_c):
+        x_c = constrain(x_c, ("batch", None, "mlp"))
         y, h_last = _rg_lru_block(x_c, gr_c, gi_c, lam, h_prev)
         return h_last, y.to(x.dtype)
 
@@ -232,8 +237,9 @@ def rg_lru(x, gates_r, gates_i, lam, h0=None):
 def _rec_block(cfg: ModelConfig, lp: Dict, h, conv_state=None, h0=None):
     """Returns (h_out, (new_conv_state, new_h_state))."""
     x = nn.apply_norm(cfg, h, lp["norm"])
-    xb = x.matmul(lp["w_x"])
-    yb = F.gelu(x.matmul(lp["w_y"]), approximate="tanh")
+    xb = constrain(x.matmul(lp["w_x"]), ("batch", None, "mlp"))
+    yb = F.gelu(constrain(x.matmul(lp["w_y"]), ("batch", None, "mlp")),
+                approximate="tanh")
     xb, new_conv = _causal_conv(xb, lp["conv_w"], lp["conv_b"], conv_state)
     gr = _block_diag(xb, lp["gate_r_w"]) + lp["gate_r_b"]
     gi = _block_diag(xb, lp["gate_i_w"]) + lp["gate_i_b"]
@@ -248,10 +254,11 @@ def _rec_block(cfg: ModelConfig, lp: Dict, h, conv_state=None, h0=None):
 
 def _group(cfg: ModelConfig, r1, r2, ap, h, pos, attend):
     """One (rec, rec, attn) group: (h_out, (state1, state2, (k, v)))."""
+    h = constrain(h, RESIDUAL_AXES)
     h, s1 = _rec_block(cfg, r1, h)
     h, s2 = _rec_block(cfg, r2, h)
     h, kv = tf.block_apply(cfg, ap, h, pos, cfg.local_window, attend)
-    return h, (s1, s2, kv)
+    return constrain(h, RESIDUAL_AXES), (s1, s2, kv)
 
 
 def _group_h(cfg: ModelConfig, r1, r2, ap, h, pos, attend):
@@ -363,8 +370,8 @@ def _rec_step(cfg: ModelConfig, lp: Dict, h, cache: Dict, i: int):
     from ``cache`` and replaced there in place."""
     h, (conv, rg) = _rec_block(cfg, lp, h, conv_state=cache["conv"][i],
                                h0=cache["rg_h"][i])
-    cache["conv"][i] = conv.to(cache["conv"].dtype)
-    cache["rg_h"][i] = rg
+    write(cache["conv"], (i,), conv.to(cache["conv"].dtype))
+    write(cache["rg_h"], (i,), rg)
     return h
 
 

@@ -18,6 +18,10 @@ flash-attention kernel (`gqa_flash`, K4), which has no backward (nor has
 the JAX package's), so the training forward attends through the plain,
 differentiable `layers.attention`, as the JAX package's training block does.
 Decode attends through `layers.attention` too, in its own layer loop.
+
+Under a mesh (the dry-run) the residual stream, the layer weights and the
+embedding table are constrained at the JAX package's sites
+(`sharding.context`); on plain tensors those calls return their input.
 """
 from __future__ import annotations
 
@@ -30,8 +34,19 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention.ops import gqa_flash
 from repro_torch.models import layers as nn
-from repro_torch.sharding.rules import ParamDef
+from repro_torch.sharding.context import (constrain, constrain_tree,
+                                         embed_lookup, grad_placed, placed,
+                                         settle, write, zeros)
+from repro_torch.sharding.rules import ParamDef, layer_axes_strs
 from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+
+# residual-stream constraint for attention families: sequence parallelism
+RESIDUAL_AXES = ("batch", "seq_shard", None)
+
+
+def block_axes(cfg: ModelConfig) -> dict:
+    """Axis-string tree for one layer's params (constrain_tree input)."""
+    return layer_axes_strs(block_param_defs(cfg, 1, cfg.param_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +186,8 @@ def block_apply(cfg: ModelConfig, lp: Dict, h, pos, window: int,
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    e = params["tok_embed"][tokens].to(getattr(torch, cfg.dtype))
+    table = constrain(params["tok_embed"], ("vocab", None))
+    e = settle(embed_lookup(tokens, table)).to(getattr(torch, cfg.dtype))
     if cfg.family in ("dense", "moe", "vlm") and cfg.norm == "rmsnorm":
         # gemma-style scale, rounded to the activation dtype first as in JAX
         e = e * torch.tensor(float(cfg.d_model) ** 0.5, dtype=torch.float32
@@ -191,14 +207,21 @@ def _unstack(blocks: Dict, num_layers: int):
     """Per-layer param dicts from the stacked ``[L, ...]`` leaves, by one
     ``unbind`` per leaf: its backward stacks the layers' gradients once,
     where indexing layer by layer would add a full-size gradient per
-    layer."""
+    layer. Under a mesh each layer's gradient is placed as its slice of
+    the leaf as soon as that layer's backward is done (`grad_placed`)."""
     leaves = [x.unbind(0) for x in tree_leaves(blocks)]
-    return [tree_unflatten_like(blocks, [leaf[i] for leaf in leaves])
+    return [tree_unflatten_like(blocks, [grad_placed(leaf[i])
+                                         for leaf in leaves])
             for i in range(num_layers)]
 
 
 def _train_block(cfg: ModelConfig, lp: Dict, h, pos, window: int):
-    return block_apply(cfg, lp, h, pos, window, attend=plain_attend)[0]
+    h = constrain(h, RESIDUAL_AXES)
+    out = block_apply(cfg, constrain_tree(lp, block_axes(cfg)), h, pos,
+                      window, attend=plain_attend)[0]
+    # output constrained too: the backward pass keeps each block's input,
+    # and an unconstrained one would be kept replicated
+    return constrain(out, RESIDUAL_AXES)
 
 
 def hidden_states(cfg: ModelConfig, params, tokens, positions=None):
@@ -241,8 +264,10 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict:
 
 
 def _positions(B: int, S: int, device, start: int = 0):
-    return torch.arange(start, start + S, dtype=torch.int32,
-                        device=device)[None, :].expand(B, S)
+    """[B, S] positions start.., placed on the batch axes under a mesh."""
+    return placed(torch.arange(start, start + S, dtype=torch.int32,
+                               device=device)[None, :].expand(B, S),
+                  ("batch", None))
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache_len: int):
@@ -253,13 +278,18 @@ def prefill(cfg: ModelConfig, params, tokens, cache_len: int):
     h = embed_tokens(cfg, params, tokens)
     dt = getattr(torch, cfg.dtype)
     shape = (cfg.num_layers, B, cfg.num_kv_heads, cache_len, cfg.head_dim)
-    cache = {name: torch.zeros(shape, dtype=dt, device=h.device)
-             for name in ("k", "v")}
+    axes = cache_defs(cfg, B, cache_len)["k"].axes
+    cache = {name: zeros(shape, dt, h.device, axes) for name in ("k", "v")}
+    axes = block_axes(cfg)
     for i, window in enumerate(_layer_flags(cfg).tolist()):
-        h, (k, v) = block_apply(cfg, _layer(params["blocks"], i), h, pos,
-                                window)
-        cache["k"][i, :, :, :S] = k.transpose(1, 2)
-        cache["v"][i, :, :, :S] = v.transpose(1, 2)
+        h = constrain(h, RESIDUAL_AXES)
+        h, (k, v) = block_apply(
+            cfg, constrain_tree(_layer(params["blocks"], i), axes), h, pos,
+            window)
+        write(cache["k"], (i, slice(None), slice(None), slice(0, S)),
+              k.transpose(1, 2))
+        write(cache["v"], (i, slice(None), slice(None), slice(0, S)),
+              v.transpose(1, 2))
     h = nn.apply_norm(cfg, h, params["final_norm"])
     logits = h[:, -1, :].matmul(unembed(cfg, params).T)
     return logits.to(torch.float32), cache
@@ -275,9 +305,10 @@ def decode_attention(cfg: ModelConfig, lp: Dict, h, cache: Dict, i: int,
     q, k = _qk_normalize(cfg, lp["attn"], q, k)
     q = nn.apply_rope(q, pos_q, cfg)
     k = nn.apply_rope(k, pos_q, cfg)
+    at = (i, slice(None), slice(None), pos)
+    write(cache["k"], at, k[:, 0].to(cache["k"].dtype))
+    write(cache["v"], at, v[:, 0].to(cache["v"].dtype))
     ck, cv = cache["k"][i], cache["v"][i]               # [B,K,S,h] views
-    ck[:, :, pos] = k[:, 0].to(ck.dtype)
-    cv[:, :, pos] = v[:, 0].to(cv.dtype)
     out = nn.attention(q, ck.transpose(1, 2), cv.transpose(1, 2), pos_q,
                        pos_k, causal=True, window=window, chunk_q=2048,
                        softcap=0.0)

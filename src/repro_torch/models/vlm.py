@@ -33,6 +33,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention.ops import gqa_flash
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tf
+from repro_torch.sharding.context import constrain, write, zeros
 from repro_torch.sharding.rules import ParamDef
 
 GROUP = 5          # 4 self + 1 cross per group
@@ -126,6 +127,7 @@ def _group(cfg: ModelConfig, self_lps, xp, h, img, img_pos, pos, prefill):
     five layers in that order). At prefill the attention goes through the
     kernel, in training through the plain attention."""
     kvs = []
+    h = constrain(h, tf.RESIDUAL_AXES)
     for i, lp in enumerate(self_lps):
         if i == CROSS_POS:
             h, xkv = _cross_block(cfg, xp, h, img, img_pos, pos,
@@ -135,7 +137,7 @@ def _group(cfg: ModelConfig, self_lps, xp, h, img, img_pos, pos, prefill):
             cfg, lp, h, pos, 0,
             attend=tf.flash_attend if prefill else tf.plain_attend)
         kvs.append(kv)
-    return h, kvs
+    return constrain(h, tf.RESIDUAL_AXES), kvs
 
 
 def _train_group(cfg, self_lps, xp, h, img, img_pos, pos):
@@ -201,11 +203,9 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds, cache_len: int):
     pos, img, img_pos, h = _inputs(cfg, params, tokens, image_embeds)
     dt = getattr(torch, cfg.dtype)
     K, hd = cfg.num_kv_heads, cfg.head_dim
-    cache = {name: torch.zeros((n, B, K, s, hd), dtype=dt, device=h.device)
-             for name, n, s in (("k", G * (GROUP - 1), cache_len),
-                                ("v", G * (GROUP - 1), cache_len),
-                                ("xk", G, img.shape[1]),
-                                ("xv", G, img.shape[1]))}
+    defs = cache_defs(cfg, B, cache_len)
+    cache = {name: zeros(d.shape, dt, h.device, d.axes)
+             for name, d in defs.items()}
     for g in range(G):
         first = g * (GROUP - 1)
         lps = [tf._layer(params["self_blocks"], first + i)
@@ -213,11 +213,12 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds, cache_len: int):
         h, kvs = _group(cfg, lps, tf._layer(params["cross_blocks"], g), h,
                         img, img_pos, pos, True)
         xk, xv = kvs.pop(CROSS_POS)
-        cache["xk"][g] = xk.transpose(1, 2)
-        cache["xv"][g] = xv.transpose(1, 2)
+        write(cache["xk"], (g,), xk.transpose(1, 2))
+        write(cache["xv"], (g,), xv.transpose(1, 2))
         for i, (k, v) in enumerate(kvs):
-            cache["k"][first + i, :, :, :S] = k.transpose(1, 2)
-            cache["v"][first + i, :, :, :S] = v.transpose(1, 2)
+            at = (first + i, slice(None), slice(None), slice(0, S))
+            write(cache["k"], at, k.transpose(1, 2))
+            write(cache["v"], at, v.transpose(1, 2))
     h = nn.apply_norm(cfg, h, params["final_norm"])
     logits = h[:, -1, :].matmul(params["lm_head"].T)
     return logits.to(torch.float32), cache

@@ -14,17 +14,34 @@ config rows over the mesh's ``data`` axis.
 
 :func:`collective_device` is the one placement rule of the slice's
 collectives: a process group's backend says where its tensors live.
+
+The rest serves the models under the dry-run's fake world
+(`repro_torch.launch.dryrun`), where the tensors are `DTensor`s of fake
+shards: :func:`placed` and :func:`zeros` put tensors a model makes
+(positions, caches, routing buffers) on the mesh, :func:`write` writes a
+cache in place, :func:`settle` reduces a pending sum, :func:`gather_seq` gathers a
+sharded sequence, :func:`grad_placed` places a parameter's gradient as the
+parameter, :func:`row_block` splits a batch into microbatches,
+and :func:`rows_matmul`,
+:func:`unflatten` / :func:`merge`, :func:`split_heads`,
+:func:`local_len` / :func:`follow_seq`, :func:`by_query_shard`,
+:func:`take_along_last`, :func:`logsumexp_last` and :func:`embed_lookup`
+reshape, reduce,
+multiply and gather where ``DTensor``'s own rules would refuse or plan
+too slowly. On plain tensors each is the op the model used before.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding.rules import (DEFAULT_RULES, logical_to_pspec,
+from repro_torch.sharding.rules import (DEFAULT_RULES, contiguous_stride,
+                                        logical_to_pspec,
                                         mesh_shape, spec_to_placements)
 from repro_torch.utils.tree import tree_map
 
@@ -115,7 +132,9 @@ def constrain(x, logical_axes: Sequence[Optional[str]]):
     if mesh is None:
         return x
     spec = logical_to_pspec(x.shape, logical_axes, mesh, current_rules())
-    return x.redistribute(mesh, spec_to_placements(spec, mesh))
+    # a pending sum is reduced first (`settle`): ``DTensor`` cannot carry
+    # the gradient of a partial-to-shard move back
+    return settle(x).redistribute(mesh, spec_to_placements(spec, mesh))
 
 
 def constrain_heads_or_seq(x, head_axis: str = "heads"):
@@ -135,17 +154,476 @@ def constrain_heads_or_seq(x, head_axis: str = "heads"):
     return constrain(x, ("batch", "seq_shard", None, None))
 
 
+# the logical axis of the weights' fsdp dim (ZeRO-3 sharding over the data
+# axes), gathered where a layer uses its weights
+FSDP_AXIS = "embed"
+
+
 def constrain_tree(tree, axes_strs):
-    """Constrain every leaf by its "a|b|c" axis string (from
-    `rules.layer_axes_strs`); a leaf whose rank differs from its string's
-    is left as it is."""
+    """Constrain every leaf of one layer's weights by its "a|b|c" axis
+    string (from `rules.layer_axes_strs`) to the layout its matmuls use:
+    the fsdp dim (``embed``) gathered, the tensor-parallel dims kept. The
+    JAX package constrains the weights to their stored layout here and
+    XLA gathers the fsdp dim for each matmul; `DTensor` would instead pick
+    each matmul's layout by its own cost model, so the gather is made
+    explicit (its backward reduce-scatters the gradient, as XLA's
+    does). A leaf whose rank differs from its string's is left as it
+    is."""
     if current_mesh() is None:
         return tree
 
     def one(x, s: str):
-        axes = tuple(a if a else None for a in s.split("|")) if s else ()
+        axes = tuple(None if a in ("", FSDP_AXIS) else a
+                     for a in s.split("|")) if s else ()
         if len(axes) != x.ndim:
             return x
         return constrain(x, axes)
 
     return tree_map(one, tree, axes_strs)
+
+
+class _PlaceGrad(torch.autograd.Function):
+    """Identity whose backward places the gradient as the input is placed:
+    a pending sum reduce-scattered (or all-reduced where the input is
+    replicated), a replicated gradient cut to the input's shard."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) == ctx.placements:
+            return grad
+        return grad.redistribute(grad.device_mesh, ctx.placements)
+
+
+def grad_placed(x):
+    """``x``; under a mesh, a `DTensor` that needs a gradient is passed
+    through an identity whose backward places that gradient as ``x`` is
+    placed, the moment it is complete. The JAX package pins the train
+    step's output state to the parameters' layout (``out_shardings``) and
+    XLA places each gradient so; without it a gradient comes back a
+    pending sum over the data axes, the size of the unsharded leaf."""
+    if _dtensor_mesh(x) is None or not x.requires_grad:
+        return x
+    return _PlaceGrad.apply(x)
+
+
+def row_block(x, parts: int, i: int):
+    """Block ``i`` of ``parts`` equal blocks of ``x``'s rows (dim 0): rows
+    [i·B/parts, (i+1)·B/parts) of a plain tensor; of a `DTensor` sharded
+    over its rows, block ``i`` of each rank's own rows, as data-parallel
+    accumulation splits a batch (no data moves; the blocks together hold
+    every row once, as the plain split's do)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    n = x.shape[0] // parts
+    if not (isinstance(x, DTensor) and Shard(0) in x.placements):
+        return x[i * n:(i + 1) * n]
+    local = x.to_local()
+    m = local.shape[0] // parts
+    shape = (n,) + tuple(x.shape[1:])
+    return DTensor.from_local(local[i * m:(i + 1) * m], x.device_mesh,
+                              x.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def take_along_last(x, idx):
+    """``x[..., idx[...]]``: x [..., V], idx [...] integer, as
+    ``torch.gather(x, -1, idx[..., None])[..., 0]``. For a `DTensor` of
+    fake shards (the dry-run) the gather runs on rank 0's shard, so its
+    backward builds the gradient of that shard alone (``DTensor``'s own
+    gather backward allocates a zero gradient of the global shape). Where
+    the last dim is sharded (vocab-parallel logits), the shard gathers the
+    indices it holds, zero elsewhere, and the results are summed over that
+    mesh dim (the masked gather that ``DTensor``'s own gather strategy
+    means to do, whose mask does not fit a gather's output)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    last = x.ndim - 1
+    x = settle(x)
+    if not isinstance(x, DTensor):
+        return torch.gather(x, -1, idx[..., None].to(torch.int64))[..., 0]
+    mesh = x.device_mesh
+    lead = [p if isinstance(p, Shard) and p.dim < last else Replicate()
+            for p in x.placements]
+    il = idx.redistribute(mesh, lead).to_local().to(torch.int64)
+    local = x.to_local()
+    if Shard(last) in x.placements:
+        n = local.shape[-1]             # rank 0's vocab shard is [0, n)
+        inside = (il >= 0) & (il < n)
+        picked = torch.gather(local, -1, il.clamp(0, n - 1)[..., None])[..., 0]
+        picked = picked * inside.to(picked.dtype)
+    else:
+        picked = torch.gather(local, -1, il[..., None])[..., 0]
+    shape = tuple(x.shape[:-1])
+    out = DTensor.from_local(
+        picked, mesh, [Partial() if p == Shard(last) else p
+                       for p in x.placements],
+        run_check=False, shape=torch.Size(shape),
+        stride=contiguous_stride(shape))
+    return out.redistribute(mesh, [Replicate() if p == Shard(last) else p
+                                   for p in x.placements])
+
+
+def logsumexp_last(x):
+    """``torch.logsumexp(x, dim=-1)``. For a `DTensor` whose last dim is
+    sharded (vocab-parallel logits) the max and the sum of exponentials are
+    reduced across the shards (an all-reduce of one value per row each),
+    where ``DTensor``'s own rule gathers the whole last dim first."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not (isinstance(x, DTensor) and Shard(x.ndim - 1) in x.placements):
+        return torch.logsumexp(x, dim=-1)
+    top = settle(x.detach().amax(dim=-1, keepdim=True))
+    return settle((x - top).exp().sum(dim=-1)).log() + top[..., 0]
+
+
+def embed_lookup(tokens, table):
+    """``F.embedding(tokens, table)``: tokens [...] integer, table [V, D].
+    For a `DTensor` table sharded over its rows (the vocab) on some mesh
+    dims and replicated on the others, rank 0's shard looks up the tokens
+    it holds, zero elsewhere: the rows come out a pending sum over the
+    vocab's mesh dims and placed as the tokens on the others, and the
+    backward builds the gradient of rank 0's rows alone (``DTensor``'s own
+    embedding backward builds it for the whole vocab, then reduces it).
+    Anything else is the plain lookup."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not (isinstance(table, DTensor) and isinstance(tokens, DTensor)
+            and Shard(0) in table.placements
+            and all(p in (Shard(0), Replicate()) for p in table.placements)):
+        return F.embedding(tokens, table)
+    mesh = table.device_mesh
+    vocab = [p == Shard(0) for p in table.placements]
+    ids = tokens.redistribute(mesh, [
+        Replicate() if v else p for p, v in zip(tokens.placements, vocab)])
+    il = ids.to_local().to(torch.int64)
+    # the gradient of rank 0's rows: a sum over the mesh dims the tokens
+    # are split on
+    grads = [Shard(0) if v else Partial() if isinstance(p, Shard) else p
+             for p, v in zip(ids.placements, vocab)]
+    local = table.to_local(grad_placements=grads)
+    n = local.shape[0]                  # rank 0's rows are [0, n)
+    inside = (il >= 0) & (il < n)
+    rows = F.embedding(il.clamp(0, n - 1), local)
+    rows = rows * inside[..., None].to(rows.dtype)
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return DTensor.from_local(
+        rows, mesh, [Partial() if v else p
+                     for p, v in zip(ids.placements, vocab)],
+        run_check=False, shape=torch.Size(shape),
+        stride=contiguous_stride(shape))
+
+
+def _dtensor_world():
+    """The ambient `DeviceMesh` when it spans more than one rank (the
+    dry-run's fake world), else None."""
+    mesh = current_mesh()
+    if mesh is None or isinstance(mesh, dict) or mesh.size() == 1:
+        return None
+    return mesh
+
+
+def placed(x, logical_axes: Sequence[Optional[str]]):
+    """A tensor the model made (positions, their masks), placed on the
+    ambient mesh by its logical axes: taken as replicated, then each
+    sharded dim cut to this rank's block, which moves no data. ``x``
+    unchanged outside a mesh of more than one rank, or when it is a
+    `DTensor` already."""
+    mesh = _dtensor_world()
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if mesh is None or isinstance(x, DTensor):
+        return x
+    spec = logical_to_pspec(x.shape, logical_axes, mesh, current_rules())
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(
+        mesh, spec_to_placements(spec, mesh))
+
+
+def zeros(shape, dtype, device, logical_axes: Sequence[Optional[str]]):
+    """``torch.zeros(shape)``; inside a mesh of more than one rank a
+    `DTensor` placed by the logical axes, of which only this rank's shard
+    is allocated (rank 0's, the largest, where the axes do not divide:
+    the dry-run's fake world)."""
+    mesh = _dtensor_world()
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.rules import NamedSharding, local_shape
+
+    spec = logical_to_pspec(shape, logical_axes, mesh, current_rules())
+    placements = spec_to_placements(spec, mesh)
+    local = torch.zeros(local_shape(shape, NamedSharding(mesh, placements)),
+                        dtype=dtype, device=device)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def write(dst, index: tuple, value) -> None:
+    """``dst[index] = value`` in place, ``index`` a tuple of ints and
+    slices over dst's leading dims (the caches' writes). For a `DTensor`
+    of fake shards (the dry-run's cache) the write goes to rank 0's shard:
+    each sharded dim of dst holds [0, n) there, so an int index past n
+    writes nothing on rank 0 and a slice is cut to [0, n); ``value`` is
+    first placed as dst's remaining dims are (replicated where dst's dim is
+    indexed or cut)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(dst, DTensor):
+        dst[index] = value
+        return
+    from repro_torch.sharding.rules import NamedSharding, local_shape
+
+    mesh = dst.device_mesh
+    index = tuple(index) + (slice(None),) * (dst.ndim - len(index))
+    kept = [d for d, ix in enumerate(index) if isinstance(ix, slice)]
+    n_local = local_shape(dst.shape, NamedSharding(mesh, dst.placements))
+    local_ix, value_ix = [], []
+    for d, ix in enumerate(index):
+        n = n_local[d]
+        if isinstance(ix, int):
+            if ix >= n:
+                return                     # another rank holds it
+            local_ix.append(ix)
+            continue
+        a, b, _ = ix.indices(dst.shape[d])
+        lo, hi = min(a, n), min(b, n)
+        local_ix.append(slice(lo, hi))
+        value_ix.append(slice(lo - a, hi - a))
+    full = {d for d, ix in zip(range(dst.ndim), index)
+            if isinstance(ix, slice) and ix.indices(dst.shape[d])[:2]
+            == (0, dst.shape[d])}
+    placements = [Shard(kept.index(p.dim))
+                  if isinstance(p, Shard) and p.dim in full else Replicate()
+                  for p in dst.placements]
+    if not isinstance(value, DTensor):
+        value = placed(value, ())
+    local = value.redistribute(mesh, placements).to_local()
+    sharded = {p.dim for p in dst.placements if isinstance(p, Shard)}
+    value_ix = [ix if d in sharded and d not in full else slice(None)
+                for d, ix in zip(kept, value_ix)]
+    dst.to_local()[tuple(local_ix)] = local[tuple(value_ix)]
+
+
+def unflatten(x, dim: int, sizes: Sequence[int]):
+    """``x.unflatten(dim, sizes)``. A `DTensor` sharded on ``dim`` over more
+    ranks than ``sizes[0]`` splits into is gathered on that dim first (a
+    reshape that cannot keep the sharding, which ``DTensor`` refuses)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if isinstance(x, DTensor):
+        mesh_sizes = list(x.device_mesh.shape)
+        ways = math.prod(n for n, p in zip(mesh_sizes, x.placements)
+                         if p == Shard(dim))
+        if ways > 1 and sizes[0] % ways:
+            x = x.redistribute(x.device_mesh,
+                               [Replicate() if p == Shard(dim) else p
+                                for p in x.placements])
+    return x.unflatten(dim, sizes)
+
+
+def split_heads(q, kv_heads: int):
+    """q [B, S, N, h] -> [B, S, K, N/K, h] (``q.unflatten(2, (K, N/K))``).
+    A `DTensor` whose heads are sharded over more ranks than K splits
+    into moves that sharding onto its sequence first where the sequence
+    divides (an all-to-all), so each rank keeps 1/ways of the queries
+    instead of gathering all heads (`unflatten`'s way, left for a single
+    query)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(q, DTensor):
+        ways = math.prod(n for n, p in zip(q.device_mesh.shape, q.placements)
+                         if p == Shard(2))
+        if ways > 1 and kv_heads % ways and Shard(1) not in q.placements \
+                and q.shape[1] % ways == 0:
+            q = q.redistribute(q.device_mesh, [
+                Shard(1) if p == Shard(2) else p for p in q.placements])
+    return unflatten(q, 2, (kv_heads, q.shape[2] // kv_heads))
+
+
+def local_len(x, dim: int) -> int:
+    """The length of ``x``'s dim on this rank: its shard's where ``x`` is
+    a `DTensor`, else the dim's."""
+    from torch.distributed.tensor import DTensor
+
+    return (x.to_local() if isinstance(x, DTensor) else x).shape[dim]
+
+
+def follow_seq(x, ref):
+    """``x`` [B, S, ...] sharded on its sequence dim as `DTensor` ``ref``
+    [B, S, ...] is (a local cut: no data moves); anything else as it
+    is."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not (isinstance(x, DTensor) and isinstance(ref, DTensor)):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Shard(1) if r == Shard(1) else p
+        for p, r in zip(x.placements, ref.placements)])
+
+
+def by_query_shard(fn, q, k, v, bias, *rest):
+    """``fn(q, k, v, bias, *rest)`` (an attention block: q [B, Q, ...], k
+    and v [B, S, ...], bias [B, 1, 1, Q, S]). Where `DTensor` q is sharded
+    on its queries, each rank runs ``fn`` on its own shards (every key is
+    local: k and v are replicated on those mesh dims, placed as q on the
+    others) and the result is placed as q; the gradients of k and v are
+    summed over the query shards. ``DTensor``'s own rules would flatten
+    the sharded query dim into a product, which some of its versions
+    refuse."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(q, DTensor) or Shard(1) not in q.placements:
+        return fn(q, k, v, bias, *rest)
+    mesh = q.device_mesh
+    kv = [Replicate() if p == Shard(1) else p for p in q.placements]
+    grads = [Partial() if p == Shard(1) else p for p in q.placements]
+    k_l, v_l = (t.redistribute(mesh, kv).to_local(grad_placements=grads)
+                for t in (k, v))
+    bias = bias.redistribute(mesh, [Shard(3) if p == Shard(1) else p
+                                    for p in q.placements]).to_local()
+    # contiguous: the plain path's merge of the heads copies it the same
+    out = fn(q.to_local(), k_l, v_l, bias, *rest).contiguous()
+    return DTensor.from_local(out, mesh, q.placements, run_check=False,
+                              shape=q.shape, stride=contiguous_stride(q.shape))
+
+
+class _Merge(torch.autograd.Function):
+    """``x.flatten(dim, dim + 1)`` whose backward splits the gradient with
+    `unflatten` (gathering a sharding the split cannot keep)."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        ctx.dim, ctx.sizes = dim, tuple(x.shape[dim:dim + 2])
+        return x.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return unflatten(grad, ctx.dim, ctx.sizes), None
+
+
+def merge(x, dim: int):
+    """``x.flatten(dim, dim + 1)``: the inverse of `unflatten`, for a
+    `DTensor` with a backward that can split its gradient."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return _Merge.apply(x, dim)
+    return x.flatten(dim, dim + 1)
+
+
+class _Settle(torch.autograd.Function):
+    """Partial -> Replicate; on the mesh dims that held the pending sum the
+    gradient of each partial term is the whole gradient, which is taken
+    replicated there (``DTensor`` cannot turn a shard into a partial); on
+    the other mesh dims it keeps its placement (a batch sharded over the
+    data axes stays so)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Partial, Replicate
+
+        ctx.partial = [isinstance(p, Partial) for p in x.placements]
+        return x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in x.placements])
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Replicate
+
+        return grad.redistribute(grad.device_mesh, [
+            Replicate() if partial else p
+            for p, partial in zip(grad.placements, ctx.partial)])
+
+
+def settle(x):
+    """A `DTensor` with a pending reduction (``Partial`` placements: a
+    vocab-sharded embedding lookup's rows, a product over a sharded
+    contraction) reduced now, to ``Replicate`` on those mesh dims: a masked
+    partial can be reduced only once, so it must be before its first of
+    several uses. Anything else is returned as it is."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    if not isinstance(x, DTensor) or not any(
+            isinstance(p, Partial) for p in x.placements):
+        return x
+    return _Settle.apply(x)
+
+
+def gather_seq(x):
+    """An activation [B, S, ...] with its sequence dim (dim 1) gathered
+    where a `DTensor` has it sharded (sequence parallelism's all-gather;
+    the backward reduce-scatters); anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor) or Shard(1) not in x.placements:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p == Shard(1) else p for p in x.placements])
+
+
+class _FlatRows(torch.autograd.Function):
+    """[B, S, ...] -> [B·S, ...] of a `DTensor` sharded over its batch only;
+    the gradient is placed back so before it is unflattened (no strided
+    shard reaches ``DTensor``'s planner)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Shard
+
+        ctx.rows = x.shape[:2]
+        ctx.placements = [Shard(p.dim - 1) if isinstance(p, Shard)
+                          and p.dim >= 2 else p for p in x.placements]
+        return x.flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad.unflatten(0, ctx.rows)
+
+
+class _UnflatRows(torch.autograd.Function):
+    """[B·S, ...] -> [B, S, ...]; the gradient's sequence dim (and any
+    strided shard) is gathered before it is flattened back."""
+
+    @staticmethod
+    def forward(ctx, y, rows):
+        return y.unflatten(0, rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Replicate, Shard
+
+        grad = settle(grad)
+        grad = grad.redistribute(grad.device_mesh, [
+            Replicate() if isinstance(p, Shard)
+            and (type(p) is not Shard or p.dim == 1) else p
+            for p in grad.placements])
+        return grad.flatten(0, 1), None
+
+
+def rows_matmul(x, w, linear: bool = False):
+    """``x @ w`` (or ``F.linear(x, w)`` with ``linear``) for x [B, S, K]. On
+    a `DTensor` the rows are flattened with the sequence gathered and the
+    batch alone sharded, in the forward and the backward pass alike: a
+    batch and a sequence both sharded would flatten into a strided shard,
+    whose redistributions ``DTensor`` plans by a search that takes minutes
+    a layer on a three-dim mesh."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return F.linear(x, w) if linear else x.matmul(w)
+    rows = tuple(x.shape[:2])
+    x = _FlatRows.apply(gather_seq(settle(x)))
+    y = F.linear(x, w) if linear else x.matmul(w)
+    return _UnflatRows.apply(y, rows)

@@ -22,9 +22,14 @@ Sharding strategy (defaults):
   * batch shards over ("pod", "data"); sequence optionally over "model".
 A dim whose size does not divide the assigned mesh axes is replicated.
 
-The port's models leave the JAX package's ``constrain`` calls out: they
-are identities outside a mesh, and only the dry-run runs a model under
-one. ``defs_to_shape_structs`` waits for the dry-run, its one caller.
+`TensorSpec` is a tensor's shape, dtype and placements without its data
+(the counterpart of ``jax.ShapeDtypeStruct``); `defs_to_shape_structs`
+and `fake_tensor` turn ParamDefs and specs into fake tensors
+(``torch._subclasses.fake_tensor``), `DTensor`s over a mesh of more than
+one rank, for the dry-run (`repro_torch.launch.dryrun`). A dim that the
+mesh axes do not divide is chunked unevenly, as ``DTensor`` chunks it;
+the JAX package pads it to the ceiling. `local_shape` is rank 0's
+shard, the largest either way.
 """
 from __future__ import annotations
 
@@ -220,6 +225,96 @@ def defs_to_shardings(defs, mesh, rules=None):
         lambda d: NamedSharding(mesh, spec_to_placements(
             logical_to_pspec(d.shape, d.axes, mesh, rules), mesh)),
         defs, is_leaf=is_param_def)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A tensor's shape, dtype and placements, without data (the counterpart
+    of ``jax.ShapeDtypeStruct``); ``sharding`` None means one device."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    sharding: Optional[NamedSharding] = None
+
+
+def spec_on(shape, dtype: torch.dtype, spec: PartitionSpec, mesh=None
+            ) -> TensorSpec:
+    """`TensorSpec` of ``shape`` placed by ``spec`` on ``mesh`` (no
+    sharding without a mesh)."""
+    sharding = (None if mesh is None else
+                NamedSharding(mesh, spec_to_placements(spec, mesh)))
+    return TensorSpec(tuple(int(d) for d in shape), dtype, sharding)
+
+
+def local_shape(shape: Sequence[int], sharding: Optional[NamedSharding]
+                ) -> Tuple[int, ...]:
+    """Rank 0's shard of a tensor of ``shape``: each mesh dim that shards
+    tensor dim d cuts it to the ceiling of its size over the mesh dim's
+    (in mesh-dim order, as ``DTensor`` chunks it). Where the size divides
+    this is every rank's shard; where it does not, rank 0's is the largest,
+    the size the JAX package pads every shard to."""
+    from torch.distributed.tensor import Shard
+
+    out = [int(d) for d in shape]
+    if sharding is None:
+        return tuple(out)
+    sizes = list(mesh_shape(sharding.mesh).values())
+    for n, p in zip(sizes, sharding.placements):
+        if isinstance(p, Shard):
+            out[p.dim] = -(-out[p.dim] // n)
+    return tuple(out)
+
+
+def contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
+    """Row-major strides of ``shape`` (no tensor made: under a fake mode
+    even a meta tensor would count as an allocation)."""
+    stride, acc = [], 1
+    for d in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= max(int(d), 1)
+    return tuple(reversed(stride))
+
+
+def _mesh_size(mesh) -> int:
+    return math.prod(mesh_shape(mesh).values())
+
+
+def fake_tensor(spec: TensorSpec, fake_mode, device="cuda"):
+    """A fake tensor (no data, no device memory) of ``spec`` made in
+    ``fake_mode``: rank 0's shard wrapped as a `DTensor` on the spec's mesh
+    with its placements, or a plain fake tensor where there is no mesh or
+    the mesh has one rank."""
+    with fake_mode:
+        if spec.sharding is None or _mesh_size(spec.sharding.mesh) == 1:
+            return torch.empty(spec.shape, dtype=spec.dtype, device=device)
+        from torch.distributed.tensor import DTensor
+
+        local = torch.empty(local_shape(spec.shape, spec.sharding),
+                            dtype=spec.dtype, device=device)
+        return DTensor.from_local(local, spec.sharding.mesh,
+                                  spec.sharding.placements, run_check=False,
+                                  shape=torch.Size(spec.shape),
+                                  stride=contiguous_stride(spec.shape))
+
+
+def defs_to_specs(defs, mesh=None, rules=None, dtype=None):
+    """ParamDef tree -> `TensorSpec` tree, each placed as `defs_to_shardings`
+    places it (in ``dtype`` where given, else the def's own)."""
+    return tree_map(
+        lambda d: spec_on(d.shape, getattr(torch, dtype or d.dtype),
+                          logical_to_pspec(d.shape, d.axes, mesh, rules)
+                          if mesh is not None else PartitionSpec(), mesh),
+        defs, is_leaf=is_param_def)
+
+
+def defs_to_shape_structs(defs, mesh, fake_mode, rules=None, dtype=None,
+                          device="cuda"):
+    """ParamDef tree -> tree of fake tensors (`fake_tensor`) placed by
+    `defs_to_shardings`: the dry-run's parameters, train state and caches,
+    for which no device memory is ever allocated. A mesh of one rank (or
+    None) gives plain fake tensors."""
+    return tree_map(lambda spec: fake_tensor(spec, fake_mode, device),
+                    defs_to_specs(defs, mesh, rules, dtype),
+                    is_leaf=lambda x: isinstance(x, TensorSpec))
 
 
 def batch_pspec(mesh, *, seq_axis: Optional[str] = None) -> PartitionSpec:

@@ -34,6 +34,7 @@ from repro_torch.kernels.svrg_update import ops as svrg_ops
 from repro_torch.models.factory import ModelBundle
 from repro_torch.optim import clip_by_global_norm, make_optimizer, make_schedule
 from repro_torch.optim.optimizers import clip_scale
+from repro_torch.sharding.context import row_block
 from repro_torch.sharding.rules import ParamDef, init_from_defs
 from repro_torch.utils.tree import tree_add, tree_leaves, tree_map, tree_scale
 
@@ -80,9 +81,10 @@ def make_train_state_defs(bundle: ModelBundle, tcfg: TrainConfig):
 
 
 def _microbatch(batch, mb: int, i: int):
-    """Rows [i·B/mb, (i+1)·B/mb) of every input (the JAX package's split)."""
-    return {key: x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))[i]
-            for key, x in batch.items()}
+    """Rows [i·B/mb, (i+1)·B/mb) of every input (the JAX package's split);
+    of a batch sharded over a mesh, block i of each rank's rows
+    (`sharding.context.row_block`)."""
+    return {key: row_block(x, mb, i) for key, x in batch.items()}
 
 
 def _accumulate(fn: Callable, params, svrg, batch, mb: int):

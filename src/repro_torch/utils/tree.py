@@ -41,11 +41,16 @@ def tree_map(fn: Callable, tree: Any, *rest: Any,
     return fn(tree, *rest)
 
 
-def tree_flatten_with_path(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+def tree_flatten_with_path(tree: Any, prefix: str = "",
+                           is_leaf: Optional[Callable[[Any], bool]] = None
+                           ) -> List[Tuple[str, Any]]:
     """``[(path, leaf)]`` in tree order; a path joins dict keys, NamedTuple
-    field names and sequence indices with "/"."""
+    field names and sequence indices with "/". A node for which ``is_leaf``
+    is true is a leaf."""
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
         items = [(str(key), tree[key]) for key in sorted(tree)]
     elif _is_namedtuple(tree):
@@ -57,7 +62,7 @@ def tree_flatten_with_path(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]
     out = []
     for key, sub in items:
         out.extend(tree_flatten_with_path(sub, f"{prefix}/{key}" if prefix
-                                          else key))
+                                          else key, is_leaf))
     return out
 
 

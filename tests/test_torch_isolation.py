@@ -101,6 +101,15 @@ SHARDING_MODULES = (
     "repro_torch.launch.mesh")
 
 
+# the modules of the dry-run slice
+DRYRUN_MODULES = (
+    "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+    "repro_torch.config", "repro_torch.models.factory",
+    "repro_torch.data.synthetic_lm", "repro_torch.sharding.rules",
+    "repro_torch.sharding.context",
+    "repro_torch.kernels.flash_attention.ops")
+
+
 def _assert_checked(modules):
     proc = _run([sys.executable, "-c", _LIST_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
@@ -133,6 +142,10 @@ def test_checks_cover_the_objectives_and_server_modules():
 
 def test_checks_cover_the_sharding_modules():
     _assert_checked(SHARDING_MODULES)
+
+
+def test_checks_cover_the_dryrun_modules():
+    _assert_checked(DRYRUN_MODULES)
 
 
 def test_source_never_names_jax_or_repro():

@@ -64,3 +64,55 @@ def test_default_hardware_is_the_h100(shape):
     assert fused["step_lower_bound_s"] == fused["bytes"] / 3.35e12
     frac = roofline.attained_fraction(**shape, fused=True, wall_s=1.0)
     assert frac["roofline_s"] == fused["step_lower_bound_s"]
+
+
+# ---------------------------------------------------------------------------
+# The LM cells' analytic count and the terms of a dry-run record
+# ---------------------------------------------------------------------------
+
+# a record as the JAX package's dry-run writes it (jaxpr_cost global)
+JAX_RECORD = {
+    "num_devices": 256,
+    "cost": {"flops": 3.1e13, "bytes accessed": 7.0e11},
+    "jaxpr_cost": {"flops": 2.56e16, "bytes": 1.28e14},
+    "collectives": {"all-reduce": 1.0e9, "all-gather": 2.0e9,
+                    "reduce-scatter": 5.0e8, "all-to-all": 0.0,
+                    "collective-permute": 0.0, "count": 12},
+    "collectives_trips": {"all-reduce": 3.4e10, "all-gather": 6.8e10,
+                          "reduce-scatter": 1.7e10, "all-to-all": 0.0,
+                          "collective-permute": 1.0e6, "count": 400},
+    "model_flops": 1.9e16,
+}
+
+
+@pytest.mark.parametrize("record", [
+    JAX_RECORD,
+    {k: v for k, v in JAX_RECORD.items() if k != "jaxpr_cost"},
+    {k: v for k, v in JAX_RECORD.items() if k != "collectives_trips"}],
+    ids=["jaxpr_cost", "cost_analysis", "no_trips"])
+def test_roofline_terms_equals_reference_tpu(record):
+    want = jroofline.roofline_terms(record, jconfig.TPU_V5E)
+    got = roofline.roofline_terms(record, config.TPU_V5E)
+    assert got == want
+
+
+def test_roofline_terms_equals_reference_h100():
+    """The port's default hardware against a JAX HardwareSpec holding the
+    H100's numbers."""
+    h100 = jconfig.HardwareSpec(**dataclasses.asdict(config.H100_SXM))
+    want = jroofline.roofline_terms(JAX_RECORD, h100)
+    assert roofline.roofline_terms(JAX_RECORD) == want
+    assert want["t_collective_s"] == (3.4e10 + 6.8e10 + 1.7e10 + 1.0e6) / 900e9
+
+
+def test_roofline_terms_reads_op_cost_per_device():
+    """The port's record counts its FLOPs on rank 0: per device, never
+    divided by the chip count again."""
+    rec = dict(JAX_RECORD)
+    del rec["jaxpr_cost"]
+    rec["op_cost"] = {"flops": 1.0e14, "bytes": 2.0e12}
+    got = roofline.roofline_terms(rec)
+    assert got["cost_source"] == "op_cost"
+    assert got["t_compute_s"] == 1.0e14 / 989e12
+    assert got["t_memory_s"] == 2.0e12 / 3.35e12
+    assert got["hlo_flops_total"] == 1.0e14 * 256
