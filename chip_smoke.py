@@ -51,6 +51,20 @@ just after; the paper's paths at the full width of the rcv1 configuration
     the same shapes under ``cancel_row`` freezes it, constructs no runner
     and builds no kernel; `run_job` cut after one group and resumed
     equals the job in one call;
+  * phase `objectives_mlp_fused` (after phase `objectives`): the MLP
+    language model's own sweep kernel, `sweep_epoch_mlp`: its backward
+    (`sample_grad`) against `MLPObjective.flat_sample_grad` for relu, gelu
+    and silu at the objective's default widths (rtol 1e-6, atol 1e-7), one
+    epoch launch (3 AsySVRG rows, the unlock row dropping 10%, and a
+    Hogwild! row) against its plain version at those widths at both
+    placements and at V 256, D 64, H 256 (d 98624, the vectors in device
+    memory), rtol 1e-5, atol 1e-6, the share of equal bits recorded; then
+    `run_sweep(engine_mode="fused")` of the MLP at the frontier widths and
+    at the defaults, 2 epochs, against the batched engine (rtol 1e-5, atol
+    1e-6), `sweep_epoch_mlp` launched groups x epochs times for the epochs,
+    once per epoch for μ and once for the starting loss, K1-K3 never; s per
+    epoch of each, and the epoch launch timed beside its plain version and
+    its float64 bound;
   * phase `sharding` (after phases `objectives` and `server`), its ranks
     spawned processes under a 120 s deadline each: a 2-rank `gloo` world,
     both ranks on this card (two processes time-sharing it, not a
@@ -183,8 +197,9 @@ and the dry-run (`repro_torch.launch.dryrun`, phase `dryrun`):
     estimate within 10% of `max_memory_allocated`, the real prefill 34
     `flash_attention` launches;
   * gemma3-4b's train_4k cell over a fake world of 256 ranks, the (16, 16)
-    mesh, full size, in a process of its own (no card visible to it) run
-    after every timed phase: it must come back `ok`.
+    mesh, full size, and falcon-mamba-7b's cut to 2 layers over both fake
+    meshes, each in a process of its own (no card visible to them), side
+    by side after every timed phase: each must come back `ok`.
 
 `sweep_epoch` is held against its plain version at the main path's shape
 (the 4-row rcv1 group, 40480 inner updates); its other cases (Hogwild!,
@@ -935,6 +950,7 @@ def reset_counts():
     sweep_epoch.placements = dict.fromkeys(sweep_epoch.placements, 0)
     gqa_flash.launches = 0
     gqa_flash.launches_by_route = dict.fromkeys(gqa_flash.launches_by_route, 0)
+    reset_mlp_counts()
 
 
 def read_counts():
@@ -1675,7 +1691,7 @@ def phase_objectives(ds):
     giving the JAX tree's keys and shapes. Returns the record, the
     nonconvex objective for phase `server`, and the kernel records."""
     from repro_torch.core.objectives import NonconvexLogistic, mlp_lm_objective
-    from repro_torch.core.sweep import SweepSpec, run_sweep
+    from repro_torch.core.sweep import run_sweep
 
     gen = torch.Generator(device="cuda").manual_seed(22)
     X, y = ds.as_torch("cuda")
@@ -1721,20 +1737,18 @@ def phase_objectives(ds):
     # the MLP on the batched engine
     mlp = mlp_lm_objective(MLP_N, **MLP_WIDTHS)
     mlp_cpu = mlp_lm_objective(MLP_N, device="cpu", **MLP_WIDTHS)
-    mlp_specs = [SweepSpec(scheme="inconsistent", step_size=st, tau=2,
-                           num_threads=4, inner_steps=mlp.n, seed=i)
-                 for i, st in enumerate(MLP_STEPS)]
+    m_specs = mlp_specs(mlp.n, "vmap")
     # the first float64 run on the card loads its kernels (~15 s once);
     # timed apart, the timed run below is warm
     t0 = time.perf_counter()
-    run_sweep(mlp, 1, mlp_specs[:1])
+    run_sweep(mlp, 1, m_specs[:1])
     torch.cuda.synchronize()
     mlp_first_s = time.perf_counter() - t0
-    m_res, m_wall, m_counts = timed_sweep(mlp, RCV1_EPOCHS, mlp_specs)
+    m_res, m_wall, m_counts = timed_sweep(mlp, RCV1_EPOCHS, m_specs)
     t0 = time.perf_counter()
-    m_cpu = run_sweep(mlp_cpu, RCV1_EPOCHS, mlp_specs)
+    m_cpu = run_sweep(mlp_cpu, RCV1_EPOCHS, m_specs)
     mlp_cpu_s = time.perf_counter() - t0
-    for c in range(len(mlp_specs)):
+    for c in range(len(m_specs)):
         check_finite_descent(f"mlp row {c}", m_res.histories[c])
     V, D, H = (MLP_WIDTHS[k] for k in ("vocab_size", "d_model", "d_hidden"))
     tree_shapes = {"b1": (H,), "embed": (V, D), "norm": (D,), "w1": (D, H),
@@ -1763,7 +1777,7 @@ def phase_objectives(ds):
         card_vs_cpu=dict(inner_updates=THREADS * NCV_CPU_INNER, epochs=1,
                          history_rel_gap=cvc_gap, max_abs_dw=cvc_dw,
                          rtol_loss=1e-4, atol_w=1e-5, cpu_s=cpu_s),
-        mlp=dict(n=mlp.n, flat_dim=mlp.flat_dim, rows=len(mlp_specs),
+        mlp=dict(n=mlp.n, flat_dim=mlp.flat_dim, rows=len(m_specs),
                  inner_updates=mlp_total, first_run_s=mlp_first_s,
                  wall_s=m_wall,
                  wall_s_per_epoch=m_wall / RCV1_EPOCHS, launches=m_counts,
@@ -1788,6 +1802,288 @@ def phase_objectives(ds):
     if m_counts != want_m or not mlp_close or not mlp_tree_ok:
         raise AssertionError(f"objectives: the MLP: {rec['mlp']}")
     return rec, ncv, k2, k3
+
+
+# phase `objectives_mlp_fused`: the MLP's own sweep kernel (sweep_epoch_mlp)
+FP64_FLOP_PER_S = 34e12        # H100 SXM float64 outside the tensor cores
+MLP_DEFAULTS = dict(vocab_size=32, seq_len=8, d_model=16, d_hidden=32)
+MLP_WIDE = dict(vocab_size=256, seq_len=8, d_model=64, d_hidden=256)
+MLP_ACTIVATIONS = ("relu", "gelu", "silu")
+MLP_DROP = 0.1                 # the unlock row's drop probability
+MLP_PLAIN_UPDATES = (128, 32)  # the epoch checks' M̃: defaults, wide
+
+
+def mlp_flops(S, V, D, H, d, grad=True):
+    """float64 operations of one sample's pass: the forward (the products,
+    the norm, the activation, the log-sum-exp) and with ``grad`` the
+    backward and the 2 S operations of each gradient coordinate."""
+    fwd = 2 * S * (D * H + H * V) + 6 * S * D + 10 * S * H + 4 * S * V
+    bwd = 2 * S * (V * H + H * D) + 10 * S * D + 2 * S * H + 3 * S * V
+    return fwd + (bwd + 2 * S * d if grad else 0)
+
+
+def mlp_epoch_bound(S, V, D, H, d, n, C, total, svrg):
+    """(bound ms, what bounds it) of one epoch launch for C rows: each input
+    read once (tokens, targets, w, mu) and each output written once, against
+    the float64 work (one or two gradients per update, the loss's n
+    forwards) plus ~6 float32 operations per coordinate of each update."""
+    nbytes = 4 * (2 * n * S + (2 if svrg else 1) * C * d + C * d + 2 * C)
+    f64 = C * (total * (2 if svrg else 1) * mlp_flops(S, V, D, H, d)
+               + n * mlp_flops(S, V, D, H, d, grad=False))
+    t_ops = f64 / FP64_FLOP_PER_S + C * total * 6 * d / FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def mlp_gaps(got, want):
+    """Largest absolute gap, share of equal bits, and allclose at rtol 1e-5,
+    atol 1e-6."""
+    return (float((got - want).abs().max()),
+            float((got == want).float().mean()),
+            bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6)))
+
+
+def mlp_sample_grad_vs_objective(gen):
+    """The kernel's backward (`sample_grad`) against `MLPObjective.
+    flat_sample_grad` on the card at the objective's default widths, for
+    each activation: 2 rows near the init, 4 samples each, rtol 1e-6, atol
+    1e-7 (both float64 inside, rounded once)."""
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp import sample_grad
+
+    out = {}
+    for act in MLP_ACTIVATIONS:
+        obj = mlp_lm_objective(64, activation=act, **MLP_DEFAULTS)
+        data = obj.data_args()
+        w0 = obj.init_flat()
+        W = w0 + 0.3 * torch.randn((2, obj.flat_dim), generator=gen,
+                                   device="cuda")
+        gaps, equal, close = [], [], True
+        for c in range(2):
+            for i in (0, 17, 40, 63):
+                g = sample_grad(*data, i, W[c].contiguous(), obj.kernel_widths)
+                want = obj.flat_sample_grad(data, torch.tensor(i), W[c])
+                gaps.append(float((g - want).abs().max()))
+                equal.append(float((g == want).float().mean()))
+                close &= bool(torch.allclose(g, want, rtol=1e-6, atol=1e-7))
+        out[act] = dict(max_abs_err=max(gaps), equal_bits=float(np.mean(equal)),
+                        within=close, flat_dim=obj.flat_dim)
+    emit(phase="objectives_mlp_fused_sample_grad", rtol=1e-6, atol=1e-7, **out)
+    bad = {a: r for a, r in out.items() if not r["within"]}
+    if bad:
+        raise AssertionError(f"sweep_epoch_mlp sample_grad disagrees with "
+                             f"flat_sample_grad: {bad}")
+    return out
+
+
+def mlp_epoch_vs_plain(gen):
+    """One epoch launch against its plain version on the card from the same
+    inputs: 3 AsySVRG rows (consistent, inconsistent, unlock with drop_prob
+    `MLP_DROP`, τ 2) and one Hogwild! unlock row; at the default widths at
+    both placements, and at V 256, D 64, H 256 (d 98624), where the
+    vectors go to the device buffer. Iterates and losses within rtol 1e-5,
+    atol 1e-6; the largest gap and the share of equal bits recorded."""
+    from repro_torch import prng
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp import ops as mlp_ops
+    from repro_torch.kernels.sweep_epoch_mlp.ops import sweep_epoch_mlp
+    from repro_torch.kernels.sweep_epoch_mlp.ref import sweep_epoch_mlp_ref
+
+    cases = []
+    for widths, total, placements in (
+            (MLP_DEFAULTS, MLP_PLAIN_UPDATES[0], (mlp_ops.SHARED,
+                                                  mlp_ops.GLOBAL)),
+            (MLP_WIDE, MLP_PLAIN_UPDATES[1], (None,))):
+        obj = mlp_lm_objective(64, **widths)
+        data = obj.data_args()
+        for engine, tau, scheme, delay in (
+                ("asysvrg", [2, 2, 2], [0, 1, 2], [1, 1, 2]),
+                ("hogwild", [2], [2], [2])):
+            C = len(tau)
+            w = (obj.init_flat() + 0.05 * torch.randn(
+                (C, obj.flat_dim), generator=gen, device="cuda")).contiguous()
+            mu = 1e-3 * torch.randn((C, obj.flat_dim), generator=gen,
+                                    device="cuda")
+            keys = prng.keys_from_seeds(range(700, 700 + C), "cuda")
+            step = torch.full((C,), 0.1, device="cuda")
+            args = (*data, w, mu if engine == "asysvrg" else None, keys, step,
+                    tau, scheme, delay)
+            kw = dict(widths=obj.kernel_widths, engine=engine, total=total,
+                      buf_len=3, option=2, drop_prob=MLP_DROP)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref, ref_loss = sweep_epoch_mlp_ref(*args, **kw)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            for placement in placements:
+                before = dict(sweep_epoch_mlp.placements)
+                out, loss = sweep_epoch_mlp(*args, placement=placement, **kw)
+                torch.cuda.synchronize()
+                where = [k for k, v in sweep_epoch_mlp.placements.items()
+                         if v != before[k]]
+                gap, eq, close = mlp_gaps(out, ref)
+                lgap, leq, lclose = mlp_gaps(loss, ref_loss)
+                rec = dict(case=f"{engine}_d{obj.flat_dim}_{where[0]}",
+                           rows=C, d=obj.flat_dim, updates=total,
+                           placement=where[0], max_abs_err=gap,
+                           equal_bits=eq, loss_abs_err=lgap,
+                           loss_equal_bits=leq, within=close and lclose,
+                           finite=bool(torch.isfinite(out).all()),
+                           plain_s=plain_s)
+                emit(phase="objectives_mlp_fused_epoch", **rec)
+                cases.append(rec)
+    bad = [r for r in cases if not (r["within"] and r["finite"])]
+    wide = [r for r in cases if r["d"] != cases[0]["d"]]
+    if bad or any(r["placement"] != mlp_ops.GLOBAL for r in wide):
+        raise AssertionError(f"sweep_epoch_mlp disagrees with its plain "
+                             f"version or took the wrong placement: "
+                             f"{bad or wide}")
+    return cases
+
+
+def mlp_specs(n, engine_mode):
+    """The MLP phases' 3 rows: inconsistent reads, τ 2, 4 threads, M̃ 4n,
+    one step size each."""
+    from repro_torch.core.sweep import SweepSpec
+
+    return [SweepSpec(scheme="inconsistent", step_size=st, tau=2,
+                      num_threads=4, inner_steps=n, seed=i,
+                      engine_mode=engine_mode)
+            for i, st in enumerate(MLP_STEPS)]
+
+
+def reset_mlp_counts():
+    """`sweep_epoch_mlp`'s counts to 0 (part of `reset_counts`; read apart,
+    by `read_mlp_counts`)."""
+    from repro_torch.kernels.sweep_epoch_mlp.ops import sweep_epoch_mlp
+    sweep_epoch_mlp.launches = 0
+    sweep_epoch_mlp.launches_by_entry = dict.fromkeys(
+        sweep_epoch_mlp.launches_by_entry, 0)
+    sweep_epoch_mlp.placements = dict.fromkeys(sweep_epoch_mlp.placements, 0)
+
+
+def read_mlp_counts():
+    from repro_torch.kernels.sweep_epoch_mlp.ops import sweep_epoch_mlp
+    return dict(sweep_epoch_mlp.launches_by_entry,
+                sweep_epoch_mlp=sweep_epoch_mlp.launches)
+
+
+def mlp_fused_vs_batched(name, widths):
+    """`run_sweep` of the MLP (`mlp_specs`, 2 epochs) batched and fused at
+    ``widths``: fused rows within rtol 1e-5, atol 1e-6 of the batched rows;
+    the fused run launches `sweep_epoch_mlp` groups x epochs times for the
+    epochs, once per epoch for μ and once for the starting loss, and no
+    K1, K2 or K3; s per epoch of each; then the fused group's epoch launch
+    alone, timed beside its plain version and its bound."""
+    from repro_torch import prng
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp.ops import (mlp_full_grad,
+                                                         sweep_epoch_mlp)
+    from repro_torch.kernels.sweep_epoch_mlp.ref import sweep_epoch_mlp_ref
+
+    obj = mlp_lm_objective(MLP_N, **widths)
+    batched, b_wall, b_counts = timed_sweep(obj, RCV1_EPOCHS,
+                                            mlp_specs(obj.n, "vmap"))
+    fused, f_wall, f_counts = timed_sweep(obj, RCV1_EPOCHS,
+                                          mlp_specs(obj.n, "fused"))
+    m_counts = read_mlp_counts()
+    groups = 1
+    want_m = {"epoch": groups * RCV1_EPOCHS, "full_grad": RCV1_EPOCHS,
+              "loss": groups}
+    want_m["sweep_epoch_mlp"] = sum(want_m.values())
+    want_f = {"svrg_update": 0, "logreg_grad": 0, "sweep_epoch": 0,
+              "flash_attention": 0}
+    for c in range(len(fused.specs)):
+        check_finite_descent(f"mlp fused {name} row {c}", fused.histories[c])
+    gap_h = float(np.abs(fused.histories - batched.histories).max())
+    gap_w = float(np.abs(fused.final_w - batched.final_w).max())
+    close = bool(np.allclose(fused.histories, batched.histories, rtol=1e-5,
+                             atol=1e-6)
+                 and np.allclose(fused.final_w, batched.final_w, rtol=1e-5,
+                                 atol=1e-6))
+
+    # the group's epoch launch alone, at the run's shape
+    data = obj.data_args()
+    C, total = len(MLP_STEPS), 4 * obj.n
+    w = torch.as_tensor(batched.final_w, device="cuda").contiguous()
+    mu = mlp_full_grad(*data, w, obj.kernel_widths)[0]
+    args = (*data, w, mu, prng.keys_from_seeds(range(C), "cuda"),
+            torch.tensor(MLP_STEPS, dtype=torch.float32, device="cuda"),
+            [2] * C, [1] * C, [1] * C)
+    kw = dict(widths=obj.kernel_widths, engine="asysvrg", total=total,
+              buf_len=3, option=2, drop_prob=0.02)
+    ms = median_ms(lambda: sweep_epoch_mlp(*args, **kw), reps=5, inner=1)
+    full_ms = median_ms(lambda: mlp_full_grad(*data, w, obj.kernel_widths),
+                        reps=5, inner=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep_epoch_mlp_ref(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    S, V, D, H = (obj.seq_len, obj.vocab_size, obj.d_model, obj.d_hidden)
+    bnd, by = mlp_epoch_bound(S, V, D, H, obj.flat_dim, obj.n, C, total, True)
+    rec = dict(phase="objectives_mlp_fused", widths=name, n=obj.n,
+               flat_dim=obj.flat_dim, rows=C, epochs=RCV1_EPOCHS,
+               inner_updates=total,
+               batched_s_per_epoch=b_wall / RCV1_EPOCHS,
+               fused_s_per_epoch=f_wall / RCV1_EPOCHS,
+               batched_launches=b_counts, fused_launches=f_counts,
+               fused_mlp_launches=m_counts, want_mlp_launches=want_m,
+               fused_vs_batched=dict(rtol=1e-5, atol=1e-6, within=close,
+                                     max_abs_dhist=gap_h, max_abs_dw=gap_w),
+               epoch_ms=ms, epoch_us_per_update=1e3 * ms / total,
+               full_grad_ms=full_ms, epoch_plain_ms=plain_ms,
+               epoch_bound_ms=bnd, epoch_bound_by=by, library_ms=None)
+    emit(**rec)
+    if m_counts != want_m or f_counts != want_f:
+        raise AssertionError(f"objectives_mlp_fused ({name}): launches "
+                             f"{m_counts} != {want_m} or {f_counts} != "
+                             f"{want_f}")
+    if not close:
+        raise AssertionError(f"objectives_mlp_fused ({name}): fused rows "
+                             f"outside rtol 1e-5, atol 1e-6 of the batched "
+                             f"rows: {rec['fused_vs_batched']}")
+    return rec
+
+
+def phase_objectives_mlp_fused():
+    """The MLP objective's own kernel (`sweep_epoch_mlp`) on the card: its
+    backward against the objective's for each activation, one epoch launch
+    against its plain version at two widths (one per placement), and
+    `run_sweep(engine_mode="fused")` against the batched engine at the
+    frontier widths and the objective's defaults. Returns the kernel's
+    record for the kernels line."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    grads = mlp_sample_grad_vs_objective(gen)
+    epochs = mlp_epoch_vs_plain(gen)
+    frontier = mlp_fused_vs_batched("frontier", MLP_WIDTHS)
+    defaults = mlp_fused_vs_batched("defaults", MLP_DEFAULTS)
+    checked = [r for r in epochs if r["d"] == epochs[0]["d"]]
+    rec = dict(
+        max_abs_err=max(max(r["max_abs_err"], r["loss_abs_err"])
+                        for r in epochs),
+        equal_bits=float(np.mean([r["equal_bits"] for r in checked])),
+        ms=frontier["epoch_ms"], plain_ms=frontier["epoch_plain_ms"],
+        bound_ms=frontier["epoch_bound_ms"],
+        bound_by=frontier["epoch_bound_by"], library_ms=None,
+        launches=frontier["fused_mlp_launches"]["sweep_epoch_mlp"],
+        defaults_ms=defaults["epoch_ms"],
+        defaults_plain_ms=defaults["epoch_plain_ms"],
+        defaults_bound_ms=defaults["epoch_bound_ms"],
+        defaults_launches=defaults["fused_mlp_launches"]["sweep_epoch_mlp"],
+        full_grad_ms=frontier["full_grad_ms"],
+        defaults_full_grad_ms=defaults["full_grad_ms"],
+        fused_s_per_epoch=frontier["fused_s_per_epoch"],
+        batched_s_per_epoch=frontier["batched_s_per_epoch"],
+        defaults_fused_s_per_epoch=defaults["fused_s_per_epoch"],
+        defaults_batched_s_per_epoch=defaults["batched_s_per_epoch"],
+        sample_grad_max_abs_err=max(r["max_abs_err"] for r in grads.values()),
+        sample_grad_equal_bits={a: r["equal_bits"] for a, r in grads.items()},
+        seconds=time.perf_counter() - t0)
+    emit(phase="objectives_mlp_fused_done_record", **rec)
+    return rec
 
 
 SERVER_DELAY_MS = 200.0   # the deadline of the server phase's first flush
@@ -3507,16 +3803,37 @@ def phase_train_card_vs_cpu():
 # and one decode token from its cache; and one full-size cell over the fake
 # (16, 16) world, in a process of its own, last
 DRYRUN_TOL = 0.10               # |estimate - max_memory_allocated| / measured
-DRYRUN_CELL_DEADLINE_S = 300.0  # the fake-world cell, from its start
+DRYRUN_CELL_DEADLINE_S = 300.0  # the fake-world cells, from their start
 DRYRUN_OUT = ROOT / "build" / "dryrun_smoke"
 
 
-def run_dryrun_cell():
-    """Run ``python -m repro_torch.launch.dryrun`` on gemma3-4b train_4k
-    over the fake (16, 16) world, with no card visible to it (its tensors
-    are fake; it makes its world in its own process), and return its record
-    with its wall time. It runs after every timed phase, alone, so no
-    timing shares the host with it; it is killed at its deadline."""
+# falcon-mamba-7b's train_4k step cut to 2 layers (plain SGD, one
+# microbatch) on a fake mesh, traced in a process of its own: its
+# channel-sharded residual once failed the backward pass on both meshes
+# (the full 64-layer cell traces for many minutes on one core)
+DRYRUN_SSM_CELL = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.config import SHAPE_GRID
+from repro_torch.launch import dryrun
+mesh = dryrun.cell_mesh(sys.argv[1])
+cfg = get_config(sys.argv[2]).with_overrides(num_layers=2)
+rec = dryrun.trace_cell(cfg, SHAPE_GRID["train_4k"], mesh, variant="sgd",
+                        microbatches=1)
+rec.update(status="ok", num_devices=mesh.size(), num_layers=2)
+print("CELL " + json.dumps(rec))
+"""
+
+
+def run_dryrun_cells():
+    """Trace, side by side and each in a process of its own with no card
+    visible to it (their tensors are fake; each makes its world in its own
+    process): gemma3-4b's full-size train_4k cell over the fake (16, 16)
+    world through ``python -m repro_torch.launch.dryrun``, and
+    falcon-mamba-7b's train_4k cell cut to 2 layers over both fake meshes
+    (`DRYRUN_SSM_CELL`). Returns their records with their wall times. They
+    run after every timed phase, so no timing shares the host with them;
+    each is killed at the deadline."""
     import os
     import shutil
 
@@ -3524,23 +3841,45 @@ def run_dryrun_cell():
     DRYRUN_OUT.mkdir(parents=True)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONPATH=str(ROOT / "src"))
+    commands = {SERVE_ARCH: [
+        sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+        SERVE_ARCH, "--shape", "train_4k", "--mesh", "single", "--out",
+        str(DRYRUN_OUT)]}
+    for mesh in ("single", "multi"):
+        commands[f"{SSM_ARCH} {mesh}"] = [sys.executable, "-c",
+                                          DRYRUN_SSM_CELL, mesh, SSM_ARCH]
     t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for name, cmd in commands.items()}
+    records = {}
     try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             SERVE_ARCH, "--shape", "train_4k", "--mesh", "single", "--out",
-             str(DRYRUN_OUT)], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=DRYRUN_CELL_DEADLINE_S)
-    except subprocess.TimeoutExpired:
-        raise AssertionError(f"dryrun: the fake-world cell ran past "
-                             f"{DRYRUN_CELL_DEADLINE_S} s") from None
-    path = DRYRUN_OUT / f"single__{SERVE_ARCH}__train_4k.json"
-    if not path.exists():
-        raise AssertionError(f"dryrun: no record (exit {proc.returncode}): "
-                             f"{(proc.stdout + proc.stderr)[-2000:]}")
-    rec = json.loads(path.read_text())
-    rec["wall_s"] = time.perf_counter() - t0
-    return rec
+        for name, proc in procs.items():
+            left = DRYRUN_CELL_DEADLINE_S - (time.perf_counter() - t0)
+            try:
+                output, _ = proc.communicate(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"dryrun: the fake-world cell {name} "
+                                     f"ran past {DRYRUN_CELL_DEADLINE_S} s"
+                                     ) from None
+            path = DRYRUN_OUT / f"single__{SERVE_ARCH}__train_4k.json"
+            lines = [x for x in output.splitlines() if x.startswith("CELL ")]
+            if name == SERVE_ARCH and path.exists():
+                rec = json.loads(path.read_text())
+            elif name != SERVE_ARCH and proc.returncode == 0 and lines:
+                rec = json.loads(lines[-1][5:])
+            else:
+                raise AssertionError(f"dryrun: no record of {name} (exit "
+                                     f"{proc.returncode}): {output[-2000:]}")
+            rec["wall_s"] = time.perf_counter() - t0
+            records[name] = rec
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+    return records
 
 
 def phase_dryrun():
@@ -3551,8 +3890,10 @@ def phase_dryrun():
     card from `reset_peak_memory_stats` with random weights from a seed:
     the estimate within DRYRUN_TOL of `max_memory_allocated` (both with
     the step's inputs; the allocator's 512-byte rounding counted), the real
-    prefill 34 flash_attention launches. Then the full-size cell over the
-    fake (16, 16) world runs (`run_dryrun_cell`) and must come back ok."""
+    prefill 34 flash_attention launches. Then gemma3-4b's full-size
+    train_4k cell over the fake (16, 16) world and falcon-mamba-7b's, cut
+    to 2 layers, over both fake meshes run side by side
+    (`run_dryrun_cells`) and must come back ok."""
     from repro_torch.config import ShapeConfig, SVRGConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
@@ -3623,7 +3964,7 @@ def phase_dryrun():
 
     gap = {name: (estimate[name]["peak_allocator_bytes"] - measured[name])
            / measured[name] for name in shapes}
-    fake = run_dryrun_cell()
+    fakes = run_dryrun_cells()
     rec = dict(phase="dryrun", arch=SERVE_ARCH,
                estimate_gb={n: e["peak_allocator_bytes"] / 1e9
                             for n, e in estimate.items()},
@@ -3635,10 +3976,11 @@ def phase_dryrun():
                rel_gap=gap, tolerance=DRYRUN_TOL, trace_s=trace_s,
                trace_launches=trace_counts, prefill_launches=prefill_counts,
                train_loss=train_loss,
-               fake_world_cell={k: fake.get(k) for k in (
-                   "status", "error", "num_devices", "memory", "cost",
-                   "collectives", "t_trace_s", "wall_s", "params_total",
-                   "model_flops")})
+               fake_world_cells={name: {k: fake.get(k) for k in (
+                   "status", "error", "num_devices", "num_layers", "memory",
+                   "cost", "collectives", "t_trace_s", "wall_s",
+                   "params_total", "model_flops")}
+                   for name, fake in fakes.items()})
     emit(**rec)
     if any(trace_counts.values()):
         raise AssertionError(f"dryrun: the traces launched {trace_counts}")
@@ -3652,8 +3994,10 @@ def phase_dryrun():
         raise AssertionError(f"dryrun: estimates off the card's peaks: {bad} "
                              f"(estimate {rec['estimate_gb']}, measured "
                              f"{rec['measured_gb']})")
-    if fake.get("status") != "ok":
-        raise AssertionError(f"dryrun: the fake-world cell: {fake}")
+    bad = {name: {k: fake.get(k) for k in ("status", "error")}
+           for name, fake in fakes.items() if fake.get("status") != "ok"}
+    if bad:
+        raise AssertionError(f"dryrun: the fake-world cells: {bad}")
     return rec
 
 
@@ -3707,6 +4051,10 @@ def main() -> int:
     t0 = time.perf_counter()
     objectives, ncv, k2_clipped, k3_clipped = phase_objectives(ds)
     emit(phase="objectives_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    mlp_fused = phase_objectives_mlp_fused()
+    emit(phase="objectives_mlp_fused_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     server = phase_server(obj, ncv)
@@ -3909,6 +4257,20 @@ def main() -> int:
                     f"{family}_{part}_{key}": rec[key] for key in (
                         "ms", "plain_ms", "library_ms", "bound_ms",
                         "max_abs_err")})
+    # the MLP objective's own sweep kernel (phase `objectives_mlp_fused`):
+    # its launches in the fused MLP run at the frontier widths, its epoch
+    # launch at that run's shape beside its plain version and bound
+    kernels.append({
+        "name": "sweep_epoch_mlp", "route": "cuda",
+        "source": "src/repro_torch/csrc/sweep_epoch_mlp.cu",
+        "replaces": "src/repro/kernels/sweep_epoch/kernel.py:92",
+        **{key: mlp_fused[key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "equal_bits", "defaults_ms",
+            "defaults_plain_ms", "defaults_bound_ms", "defaults_launches",
+            "full_grad_ms", "defaults_full_grad_ms", "fused_s_per_epoch",
+            "batched_s_per_epoch", "defaults_fused_s_per_epoch",
+            "defaults_batched_s_per_epoch", "sample_grad_max_abs_err")}})
     emit(phase="total", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

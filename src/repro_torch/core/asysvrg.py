@@ -216,9 +216,11 @@ def _epoch_core(obj: Objective, data, w, key, eta, tau, scheme_id, delay_id,
 def _masked_epochs(obj: Objective, data, w0, key, *, epochs: int,
                    row_epochs: Optional[Sequence[int]],
                    epoch: Callable[[List[int], torch.Tensor, torch.Tensor],
-                                   torch.Tensor]):
+                                   torch.Tensor],
+                   loss0: Optional[torch.Tensor] = None):
     """``epochs`` outer iterations of C rows, with the loss recorded after
-    every epoch (index 0 = loss at w0). ``epoch(live, w, sub)`` runs one
+    every epoch (index 0 = loss at w0: ``loss0`` where the caller has it,
+    else ``obj.flat_loss``). ``epoch(live, w, sub)`` runs one
     epoch for the rows ``live`` (host indices) from their iterates and
     epoch keys, and returns their new iterates and the loss at each.
 
@@ -230,7 +232,7 @@ def _masked_epochs(obj: Objective, data, w0, key, *, epochs: int,
     C = w0.shape[0]
     bound = [epochs] * C if row_epochs is None else [int(e) for e in row_epochs]
     w = w0
-    losses = [obj.flat_loss(data, w0)]
+    losses = [obj.flat_loss(data, w0) if loss0 is None else loss0]
     for e in range(epochs):
         halves = prng.split(key, 2)
         key, sub = halves[:, 0], halves[:, 1]

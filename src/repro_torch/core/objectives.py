@@ -19,8 +19,11 @@ depends on the other rows it is computed with (to within float64 rounding).
   samples with `torch.func.vmap`, rounded once to float32 (the JAX package
   computes in float32 with summation orders it pins; float64 here makes the
   rows independent of their batch and the card agree with the CPU). The
-  sweep runs it on the batched engine, whose updates go through K1; the
-  fused kernel does not take it (`repro_torch.core.sweep.plan_sweep`).
+  batched engine runs its updates through K1; with ``engine_mode="fused"``
+  its epochs, snapshot gradients and losses go through its own kernel
+  (`repro_torch.kernels.sweep_epoch_mlp`), whose hand-written float64
+  forward and backward sit inside the update chain and take the widths
+  from `MLPObjective.kernel_widths`.
 """
 from __future__ import annotations
 
@@ -110,6 +113,14 @@ class MLPObjective(Objective):
     def static_key(self) -> Tuple:
         return (self.vocab_size, self.d_model, self.d_hidden,
                 self.activation, self.init_seed, self.init_scale)
+
+    @property
+    def kernel_widths(self) -> Tuple[int, int, int, str]:
+        """What the fused kernel needs beside the int32 tokens and targets
+        of `data_args`: (vocab_size, d_model, d_hidden, activation), the
+        fields of `repro_torch.kernels.sweep_epoch_mlp.ref.MLPWidths`."""
+        return (self.vocab_size, self.d_model, self.d_hidden,
+                self.activation)
 
     # -- one sample, one flat row (float64) ------------------------------------
     def _sample_loss(self, w, oh, tgt):

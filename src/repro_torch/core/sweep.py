@@ -17,8 +17,11 @@ row's τ, scheme, delay kind, step size and epoch budget as data.
     launch for the rows' snapshots (AsySVRG groups) and ONE
     ``sweep_epoch`` launch for every inner update of every row.
     `LogisticRegression` and `NonconvexLogistic` (the kernels take the L2
-    or the clipped penalty); an `MLPObjective` raises, its per-sample
-    gradient is not in the kernel's update chain.
+    or the clipped penalty); an `MLPObjective` group runs on its own
+    kernel (`repro_torch.kernels.sweep_epoch_mlp`): per epoch one launch
+    for the rows' snapshots (AsySVRG groups) and one for every inner update
+    of every row, its per-sample forward and backward inside the update
+    chain. Another objective raises.
 
 ``""`` inherits `default_engine_mode()`: ``$REPRO_SWEEP_ENGINE``, else
 "vmap", as in the JAX package.
@@ -63,9 +66,8 @@ Every group runs through the persistent runner cache
 each runner call is bracketed on the host by the tracer's ``execute`` span
 and the performance ledger (`repro_torch.obs`), both opt-in.
 
-Not ported yet, raising `NotImplementedError`: fused mode for an
-objective the kernels do not compute (the MLP). It does not fall back to
-another path.
+Fused mode raises `NotImplementedError` for an objective no kernel
+computes. It does not fall back to another path.
 """
 from __future__ import annotations
 
@@ -90,7 +92,7 @@ from repro_torch.core.asysvrg import (
 from repro_torch.core.hogwild import _hogwild_epochs_core, _resolve_hogwild_steps
 from repro_torch.core.objective import (LogisticRegression, Objective,
                                         get_objective, params_from_flat)
-from repro_torch.core.objectives import NonconvexLogistic
+from repro_torch.core.objectives import MLPObjective, NonconvexLogistic
 from repro_torch.kernels.dispatch import mode_tags
 from repro_torch.kernels.sweep_epoch import fused_group_fn
 from repro_torch.obs import ledger as _ledger
@@ -341,8 +343,9 @@ def _executed_spec(spec: SweepSpec, r: _Resolved) -> SweepSpec:
 
 
 # the objectives whose math the fused kernels compute (their data is
-# (X, y, *penalty), `kernels.sweep_epoch.fused_group_fn`)
-_FUSED_OBJECTIVES = (LogisticRegression, NonconvexLogistic)
+# (X, y, *penalty) or the MLP's (tokens, targets),
+# `kernels.sweep_epoch.fused_group_fn`)
+_FUSED_OBJECTIVES = (LogisticRegression, NonconvexLogistic, MLPObjective)
 
 # (objective fingerprint, engine, M̃, option, buf_len, fused)
 _GroupKey = Tuple[int, str, int, int, int, bool]
@@ -393,12 +396,12 @@ def plan_sweep(obj: Optional[Objective], epochs: int,
     resolved = tuple(_resolve(obj, s, epochs) for s in specs)
     if any(r.fused for r in resolved) and type(obj) not in _FUSED_OBJECTIVES:
         raise NotImplementedError(
-            f"engine_mode='fused' runs LogisticRegression and "
-            f"NonconvexLogistic, not {type(obj).__name__}: the sweep-epoch "
-            "kernel computes the logistic sample gradient with an L2 or a "
-            "clipped penalty, and another objective's per-sample gradient "
-            "inside its update chain is not ported yet — use "
-            "engine_mode='vmap'")
+            f"engine_mode='fused' runs LogisticRegression, "
+            f"NonconvexLogistic and MLPObjective, not {type(obj).__name__}: "
+            "the sweep-epoch kernels compute the logistic sample gradient "
+            "with an L2 or a clipped penalty and the MLP's, and another "
+            "objective's per-sample gradient inside their update chain is "
+            "not ported — use engine_mode='vmap'")
     specs = tuple(_executed_spec(s, r) for s, r in zip(specs, resolved))
     groups: Dict[_GroupKey, List[int]] = {}
     for c, r in enumerate(resolved):

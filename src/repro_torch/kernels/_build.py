@@ -30,8 +30,8 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("svrg_update", "logreg_grad", "sweep_epoch", "flash_attention",
-           "flash_attention_wgmma")
+SOURCES = ("svrg_update", "logreg_grad", "sweep_epoch", "sweep_epoch_mlp",
+           "flash_attention", "flash_attention_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

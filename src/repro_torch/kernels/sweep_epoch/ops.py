@@ -25,7 +25,12 @@ all of the card's SMs.
 the batched engine's group bodies, so `run_sweep` takes it per group when
 ``SweepSpec.engine_mode == "fused"``: per epoch one ``logreg_grad`` launch
 for the rows' snapshot gradients μ (AsySVRG groups) and one
-``sweep_epoch`` launch, which also gives the epoch's losses.
+``sweep_epoch`` launch, which also gives the epoch's losses. An
+`MLPObjective` group runs on the MLP's own kernel instead,
+``sweep_epoch_mlp`` (`repro_torch.kernels.sweep_epoch_mlp`,
+``csrc/sweep_epoch_mlp.cu``): per epoch one launch of its full-gradient
+entry for μ and one of its epoch entry, and once its loss entry for the
+starting loss.
 """
 from __future__ import annotations
 
@@ -37,7 +42,9 @@ import torch
 from repro_torch.core.asysvrg import _masked_epochs
 from repro_torch.kernels import dispatch, regularizer
 from repro_torch.kernels.sweep_epoch import kernel
-from repro_torch.kernels.sweep_epoch.ref import sweep_epoch_ref
+from repro_torch.kernels.sweep_epoch.ref import check_rows, sweep_epoch_ref
+from repro_torch.kernels.sweep_epoch_mlp.ops import (mlp_full_grad, mlp_loss,
+                                                     sweep_epoch_mlp)
 
 SHARED, GLOBAL, GLOBAL_L2 = "shared", "global", "global_l2"
 PLACEMENTS = (SHARED, GLOBAL, GLOBAL_L2)  # in order of preference
@@ -79,25 +86,6 @@ def choose_placement(d: int, buf_len: int, engine: str, limit: int) -> str:
                      f"block has ({limit} bytes)")
 
 
-def _check_rows(C: int, tau, scheme_id, delay_id, *, engine: str, total: int,
-                buf_len: int, option: int, drop_prob: float) -> None:
-    if engine not in kernel.ENGINE_CODES:
-        raise ValueError(f"sweep_epoch: unknown engine {engine!r}")
-    if engine == "asysvrg" and option not in (1, 2):
-        raise ValueError(f"sweep_epoch: option must be 1 or 2, got {option}")
-    if not len(tau) == len(scheme_id) == len(delay_id) == C:
-        raise ValueError(f"sweep_epoch: tau, scheme_id and delay_id need one "
-                         f"entry per row ({C})")
-    if total < 1 or min(tau) < 0 or buf_len < max(tau) + 1:
-        raise ValueError(f"sweep_epoch: total {total}, buf_len {buf_len} "
-                         f"and tau {list(tau)} need total >= 1 and "
-                         "buf_len >= max(tau) + 1")
-    if not set(scheme_id) <= {0, 1, 2} or not set(delay_id) <= {0, 1, 2}:
-        raise ValueError("sweep_epoch: scheme and delay ids are 0, 1 or 2")
-    if not 0.0 <= drop_prob < 1.0:
-        raise ValueError(f"sweep_epoch: drop_prob {drop_prob} not in [0, 1)")
-
-
 def sweep_epoch(X, y, reg, w, mu, keys, step, tau: Sequence[int],
                 scheme_id: Sequence[int], delay_id: Sequence[int], *,
                 engine: str, total: int, buf_len: int, option: int,
@@ -117,8 +105,8 @@ def sweep_epoch(X, y, reg, w, mu, keys, step, tau: Sequence[int],
     """
     C = w.shape[0]
     reg = regularizer.regularizer(reg)
-    _check_rows(C, tau, scheme_id, delay_id, engine=engine, total=total,
-                buf_len=buf_len, option=option, drop_prob=drop_prob)
+    check_rows(C, tau, scheme_id, delay_id, engine=engine, total=total,
+               buf_len=buf_len, option=option, drop_prob=drop_prob)
     if placement is not None and placement not in _LAYOUT:
         raise ValueError(f"sweep_epoch: unknown placement {placement!r}")
     svrg = engine == "asysvrg"
@@ -202,15 +190,19 @@ def fused_group_fn(obj, num_data: int, *, engine: str, epochs: int,
     the calling convention of `core.sweep._asysvrg_group_fn` /
     `_hogwild_group_fn`. The objective's data is ``(X, y, *reg)``: ``(X,
     y, l2)`` for `LogisticRegression`, ``(X, y, lam, alpha)`` for
-    `NonconvexLogistic`. Epochs and per-row budgets run through
+    `NonconvexLogistic`; for an `MLPObjective` (one with ``kernel_widths``)
+    it is ``(tokens, targets)`` and the group runs on
+    ``sweep_epoch_mlp``: its loss entry gives the starting loss, its
+    full-gradient entry each epoch's μ (AsySVRG groups), its epoch entry
+    the epoch. Epochs and per-row budgets run through
     `core.asysvrg._masked_epochs`, each epoch's losses come from the
-    ``sweep_epoch`` launch; Hogwild! rows decay γ ← decay·γ after each live
+    epoch's launch; Hogwild! rows decay γ ← decay·γ after each live
     epoch, in float32."""
     hogwild = engine == "hogwild"
+    widths = getattr(obj, "kernel_widths", None)
 
     def group(*all_args):
         data = all_args[:num_data]
-        X, y, *reg = data
         if hogwild:
             (keys, gammas, decays, taus, scheme_ids, delay_ids, row_epochs,
              w0_rows) = all_args[num_data:]
@@ -221,17 +213,24 @@ def fused_group_fn(obj, num_data: int, *, engine: str, epochs: int,
 
         def epoch(live, w, sub):
             sel = torch.tensor(live, device=w.device)
-            mu = None if hogwild else obj.flat_full_grad(data, w)
-            w_new, loss = sweep_epoch(
-                X, y, tuple(reg), w, mu, sub, steps[sel], [taus[c] for c in live],
-                [scheme_ids[c] for c in live], [delay_ids[c] for c in live],
-                engine=engine, total=total, buf_len=buf_len, option=option,
-                drop_prob=drop_prob)
+            rows = (sub, steps[sel], [taus[c] for c in live],
+                    [scheme_ids[c] for c in live], [delay_ids[c] for c in live])
+            kw = dict(engine=engine, total=total, buf_len=buf_len,
+                      option=option, drop_prob=drop_prob)
+            if widths is None:
+                X, y, *reg = data
+                mu = None if hogwild else obj.flat_full_grad(data, w)
+                w_new, loss = sweep_epoch(X, y, tuple(reg), w, mu, *rows, **kw)
+            else:
+                mu = None if hogwild else mlp_full_grad(*data, w, widths)[0]
+                w_new, loss = sweep_epoch_mlp(*data, w, mu, *rows,
+                                              widths=widths, **kw)
             if hogwild:
                 steps[sel] = steps[sel] * decays[sel]
             return w_new, loss
 
+        loss0 = None if widths is None else mlp_loss(*data, w0_rows, widths)
         return _masked_epochs(obj, data, w0_rows, keys, epochs=epochs,
-                              row_epochs=row_epochs, epoch=epoch)
+                              row_epochs=row_epochs, epoch=epoch, loss0=loss0)
 
     return group

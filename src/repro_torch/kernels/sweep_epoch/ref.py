@@ -1,7 +1,9 @@
 """Plain torch version of one epoch's inner loop for the C rows of a sweep
 group: the function ``csrc/sweep_epoch.cu`` computes, written straight from
 the definition (`repro.core.asysvrg._epoch_core`,
-`repro.core.hogwild._hogwild_epoch_core`).
+`repro.core.hogwild._hogwild_epoch_core`). Its step loop (`epoch_loop`,
+around any objective's sample gradient) and its draws are also the MLP
+kernel's plain version's (`repro_torch.kernels.sweep_epoch_mlp.ref`).
 
 A Python loop over the ``total`` steps; rows run side by side and never mix.
 Each row's draws come from its epoch key with `repro_torch.prng`, as the
@@ -30,6 +32,7 @@ import torch
 from repro_torch import prng
 from repro_torch.kernels import regularizer
 
+ENGINES = ("asysvrg", "hogwild")
 _CONSISTENT, _INCONSISTENT, _UNLOCK = 0, 1, 2
 _ZERO, _FIXED = 0, 1
 
@@ -85,13 +88,50 @@ def sweep_epoch_ref(X, y, reg, w, mu, keys, step, tau: Sequence[int],
     loss at each [C]. ``reg``: a float λ (L2) or ``(lam, alpha)``
     (clipped)."""
     reg = regularizer.regularizer(reg)
+    u = epoch_loop(lambda i, v: _sample_grad(X[i], y[i], reg, v), X.shape[0],
+                   w, mu, keys, step, tau, scheme_id, delay_id, engine=engine,
+                   total=total, buf_len=buf_len, option=option,
+                   drop_prob=drop_prob)
+    return u, _loss(X, y, reg, u)
+
+
+def check_rows(C: int, tau, scheme_id, delay_id, *, engine: str, total: int,
+               buf_len: int, option: int, drop_prob: float) -> None:
+    """Raise unless the rows' settings are ones the sweep kernels take."""
+    if engine not in ENGINES:
+        raise ValueError(f"sweep_epoch: unknown engine {engine!r}")
+    if engine == "asysvrg" and option not in (1, 2):
+        raise ValueError(f"sweep_epoch: option must be 1 or 2, got {option}")
+    if not len(tau) == len(scheme_id) == len(delay_id) == C:
+        raise ValueError(f"sweep_epoch: tau, scheme_id and delay_id need one "
+                         f"entry per row ({C})")
+    if total < 1 or min(tau) < 0 or buf_len < max(tau) + 1:
+        raise ValueError(f"sweep_epoch: total {total}, buf_len {buf_len} "
+                         f"and tau {list(tau)} need total >= 1 and "
+                         "buf_len >= max(tau) + 1")
+    if not set(scheme_id) <= {0, 1, 2} or not set(delay_id) <= {0, 1, 2}:
+        raise ValueError("sweep_epoch: scheme and delay ids are 0, 1 or 2")
+    if not 0.0 <= drop_prob < 1.0:
+        raise ValueError(f"sweep_epoch: drop_prob {drop_prob} not in [0, 1)")
+
+
+def epoch_loop(sample_grad, n: int, w, mu, keys, step, tau: Sequence[int],
+               scheme_id: Sequence[int], delay_id: Sequence[int], *,
+               engine: str, total: int, buf_len: int, option: int,
+               drop_prob: float):
+    """The update chain of one epoch for the rows of ``w`` [C, d], in the
+    kernels' order, around ``sample_grad(i [C], u [C, d]) -> [C, d]``, the
+    objective's float32 sample gradient of each row's sample at its own
+    iterate: the rows' results [C, d] (the last iterate, or for AsySVRG
+    with option 2 the epoch's average). Shared by the plain versions of
+    both sweep kernels."""
     C, d = w.shape
     device = w.device
     ints = dict(dtype=torch.int64, device=device)
     taus = torch.tensor(list(tau), **ints)
     scheme = torch.tensor(list(scheme_id), **ints)[:, None]
     idx, age, k_read, k_drop = epoch_streams(
-        keys, X.shape[0], total, taus, torch.tensor(list(delay_id), **ints))
+        keys, n, total, taus, torch.tensor(list(delay_id), **ints))
     slots = taus + 1
     rows = torch.arange(C, device=device)
     svrg = engine == "asysvrg"
@@ -113,14 +153,14 @@ def sweep_epoch_ref(X, y, reg, w, mu, keys, step, tau: Sequence[int],
             slot = torch.where(scheme == _INCONSISTENT, mixed,
                                torch.where(scheme == _UNLOCK,
                                            ages % slots[:, None], slot))
-        x, yi = X[idx[:, m]], y[idx[:, m]]
-        g = _sample_grad(x, yi, reg, ring.gather(1, slot[:, None, :])[:, 0])
+        i = idx[:, m]
+        g = sample_grad(i, ring.gather(1, slot[:, None, :])[:, 0])
         keep = None
         if dropping:
             kept = (prng.uniform(k_drop[:, m], (d,)) < keep_p).to(torch.float32)
             keep = torch.where(scheme == _UNLOCK, kept, 1.0)
         if svrg:
-            g0, gf = _sample_grad(x, yi, reg, w), mu
+            g0, gf = sample_grad(i, w), mu
             if keep is not None:
                 g, g0, gf = g * keep, g0 * keep, gf * keep
             u = u - rate * ((g - g0) + gf)
@@ -132,4 +172,4 @@ def sweep_epoch_ref(X, y, reg, w, mu, keys, step, tau: Sequence[int],
         ring[rows, (m + 1) % slots] = u
     if svrg and option == 2:
         u = acc / torch.full((C, 1), float(total), device=device)
-    return u, _loss(X, y, reg, u)
+    return u

@@ -25,7 +25,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tf
 from repro_torch.models.rglru import _causal_conv, chunked, scan, softplus
-from repro_torch.sharding.context import constrain, write
+from repro_torch.sharding.context import constrain, settle, write
 from repro_torch.sharding.rules import ParamDef
 
 CHUNK = 256
@@ -68,7 +68,9 @@ def _ssm_params(x, lp: Dict, cfg: ModelConfig):
     dt and the product dt·x in x's dtype, then float32, as the JAX
     package's."""
     N, R = cfg.ssm_state, cfg.dt_rank_actual
-    proj = x.matmul(lp["x_proj"])
+    # the contraction runs over the channels, sharded over `model` under a
+    # mesh: its pending sum is reduced here, before dt, B and C share it
+    proj = settle(x.matmul(lp["x_proj"]))
     dtr, Bc, Cc = torch.split(proj, [R, N, N], dim=-1)
     dt = softplus(dtr.matmul(lp["dt_proj"]) + lp["dt_bias"])
     A = -torch.exp(lp["A_log"].to(torch.float32))               # [Di,N]

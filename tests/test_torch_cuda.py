@@ -388,6 +388,105 @@ def test_mlp_sweep_on_the_card_matches_cpu(gen):
                                atol=1e-6)
 
 
+MLP_KW = dict(vocab_size=16, seq_len=4, d_model=8, d_hidden=16)
+
+
+@pytest.mark.parametrize("activation", ["relu", "gelu", "silu"])
+def test_mlp_sample_grad_kernel_matches_objective(gen, activation):
+    """The MLP kernel's hand-written backward against the objective's
+    `torch.func` gradient on the card, rtol 1e-6, atol 1e-7 (float64
+    inside, rounded once), at the objective's default widths."""
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp import sample_grad
+
+    obj = mlp_lm_objective(64, activation=activation)
+    data = obj.data_args()
+    W = obj.init_flat() + 0.3 * torch.randn((2, obj.flat_dim), generator=gen,
+                                            device="cuda")
+    for c in range(2):
+        for i in (0, 33, 63):
+            g = sample_grad(*data, i, W[c].contiguous(), obj.kernel_widths)
+            want = obj.flat_sample_grad(data, torch.tensor(i), W[c])
+            torch.testing.assert_close(g, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("placement", ["shared", "global"])
+@pytest.mark.parametrize("engine", ["asysvrg", "hogwild"])
+def test_sweep_epoch_mlp_kernel_matches_plain(gen, engine, placement):
+    """One epoch launch against the plain version from the same inputs, the
+    three readers (the unlock row dropping 10% of its coordinates), at each
+    placement: iterates and losses within rtol 1e-5, atol 1e-6."""
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp.ops import sweep_epoch_mlp
+    from repro_torch.kernels.sweep_epoch_mlp.ref import sweep_epoch_mlp_ref
+
+    obj = mlp_lm_objective(32, **MLP_KW)
+    C, d = 3, obj.flat_dim
+    w = obj.init_flat() + 0.05 * torch.randn((C, d), generator=gen,
+                                             device="cuda")
+    mu = 1e-3 * torch.randn((C, d), generator=gen, device="cuda")
+    args = (*obj.data_args(), w, mu if engine == "asysvrg" else None,
+            prng.keys_from_seeds(range(C), "cuda"),
+            torch.full((C,), 0.1, device="cuda"), [2, 2, 1], [0, 1, 2],
+            [1, 2, 1])
+    kw = dict(widths=obj.kernel_widths, engine=engine, total=64, buf_len=3,
+              option=2, drop_prob=0.1)
+    before = dict(sweep_epoch_mlp.placements)
+    out, loss = sweep_epoch_mlp(*args, placement=placement, **kw)
+    assert sweep_epoch_mlp.placements[placement] == before[placement] + 1
+    ref, ref_loss = sweep_epoch_mlp_ref(*args, **kw)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-6)
+
+
+def test_sweep_epoch_mlp_full_grad_and_loss_match_objective(gen):
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp import mlp_full_grad, mlp_loss
+
+    obj = mlp_lm_objective(32, **MLP_KW)
+    data = obj.data_args()
+    W = obj.init_flat() + 0.3 * torch.randn((3, obj.flat_dim), generator=gen,
+                                            device="cuda")
+    mu, f = mlp_full_grad(*data, W, obj.kernel_widths)
+    torch.testing.assert_close(mu, obj.flat_full_grad(data, W), rtol=1e-6,
+                               atol=1e-7)
+    torch.testing.assert_close(f, obj.flat_loss(data, W), rtol=1e-6, atol=0)
+    assert torch.equal(mlp_loss(*data, W, obj.kernel_widths), f)
+
+
+def test_mlp_fused_sweep_matches_batched_on_the_card(gen):
+    """The MLP fused (its own kernel: per group one loss launch, per epoch
+    one full-gradient and one epoch launch, no K1) against batched (K1 per
+    update) on the card, rtol 1e-5, atol 1e-6; a row alone equal in bits
+    to the row in its group."""
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp.ops import sweep_epoch_mlp
+
+    obj = mlp_lm_objective(32, **MLP_KW)
+
+    def specs(mode):
+        return [SweepSpec(scheme=s, step_size=0.1, tau=2, num_threads=4,
+                          inner_steps=32, seed=c, engine_mode=mode)
+                for c, s in enumerate(("consistent", "inconsistent",
+                                       "unlock"))] + \
+            [SweepSpec(algo="hogwild", scheme="unlock", step_size=0.1,
+                       num_threads=4, tau=-1, engine_mode=mode)]
+
+    before = (sweep_epoch_mlp.launches, svrg_update.launches)
+    fused = run_sweep(obj, 2, specs("fused"))
+    # 2 groups x (1 loss + 2 epochs) + 2 snapshots of the AsySVRG group
+    assert (sweep_epoch_mlp.launches, svrg_update.launches) == \
+        (before[0] + 8, before[1])
+    batched = run_sweep(obj, 2, specs("vmap"))
+    np.testing.assert_allclose(fused.histories, batched.histories,
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(fused.final_w, batched.final_w, rtol=1e-5,
+                               atol=1e-6)
+    alone = run_sweep(obj, 2, [specs("fused")[1]])
+    assert np.array_equal(alone.final_w[0], fused.final_w[1])
+    assert np.array_equal(alone.histories[0], fused.histories[1])
+
+
 @pytest.mark.parametrize("placement", list(sweep_ops.PLACEMENTS))
 @pytest.mark.parametrize("d", [33, 2048])
 @pytest.mark.parametrize("engine", ["asysvrg", "hogwild"])

@@ -470,3 +470,57 @@ def test_reduced_grid_traces_on_fake_worlds():
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
             assert peak["multi", arch, shape] < peak["single", arch, shape], \
                 (arch, shape)
+
+
+_MAMBA_TRAIN = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.config import SHAPE_GRID
+from repro_torch.launch import dryrun
+from repro_torch.models import mamba
+mesh = dryrun.cell_mesh(sys.argv[1])
+cfg = get_config("falcon-mamba-7b").with_overrides(num_layers=2)
+shape = SHAPE_GRID["train_4k"]
+mamba.CHUNK = shape.seq_len   # one scan chunk: a quarter of the trace
+rec = dryrun.trace_cell(cfg, shape, mesh, variant="sgd", microbatches=1)
+print("CELL", json.dumps([mesh.size(), rec["memory"]["peak_per_device_bytes"],
+                          sum(v for k, v in rec["collectives"].items()
+                              if k != "count")]))
+"""
+
+
+# the 2-layer falcon-mamba cell's processes: the (2, 16, 16) mesh's trace
+# alone takes ~60 s on one core (`DTensor`'s strategies over three mesh dims),
+# twice the reduced grid's per-process work, so its deadline is doubled
+MAMBA_DEADLINE_S = 2 * GRID_DEADLINE_S
+
+
+def test_mamba_train_cell_traces_on_fake_worlds():
+    """falcon-mamba-7b's train_4k step at 2 layers (plain SGD, one
+    microbatch, the selective scan in one chunk) on both fake production
+    meshes, one process each: its channel-sharded residual makes the
+    scan's projection a pending sum, which must be reduced before the scan
+    (a pending sum written into the scan's slices cannot take its gradient
+    back)."""
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    procs = {kind: subprocess.Popen([sys.executable, "-c", _MAMBA_TRAIN, kind],
+                                    cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for kind in ("single", "multi")}
+    cells = {}
+    try:
+        for kind, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=MAMBA_DEADLINE_S)
+            assert proc.returncode == 0, stderr[-3000:]
+            line = [x for x in stdout.splitlines() if x.startswith("CELL ")][0]
+            cells[kind] = json.loads(line[5:])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+    assert cells["single"][0] == 256 and cells["multi"][0] == 512
+    for ranks, peak_b, coll_b in cells.values():
+        assert peak_b > 0 and coll_b > 0
+

@@ -110,6 +110,14 @@ DRYRUN_MODULES = (
     "repro_torch.kernels.flash_attention.ops")
 
 
+# the modules of the fused MLP slice
+MLP_FUSED_MODULES = (
+    "repro_torch.kernels.sweep_epoch_mlp.ops",
+    "repro_torch.kernels.sweep_epoch_mlp.kernel",
+    "repro_torch.kernels.sweep_epoch_mlp.ref",
+    "repro_torch.kernels.sweep_epoch.ref")
+
+
 def _assert_checked(modules):
     proc = _run([sys.executable, "-c", _LIST_ALL], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
@@ -146,6 +154,10 @@ def test_checks_cover_the_sharding_modules():
 
 def test_checks_cover_the_dryrun_modules():
     _assert_checked(DRYRUN_MODULES)
+
+
+def test_checks_cover_the_mlp_fused_modules():
+    _assert_checked(MLP_FUSED_MODULES)
 
 
 def test_source_never_names_jax_or_repro():

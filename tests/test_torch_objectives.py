@@ -29,7 +29,8 @@ from repro.utils.tree import tree_ravel as jax_tree_ravel
 from repro_torch import prng
 from repro_torch.convert import to_objective
 from repro_torch.core import sweep as psw
-from repro_torch.core.objective import LogisticRegression, params_from_flat
+from repro_torch.core.objective import (LogisticRegression, Objective,
+                                        params_from_flat)
 from repro_torch.core.objectives import (MLPObjective, NonconvexLogistic,
                                          mlp_lm_objective)
 from repro_torch.core.svrg import run_svrg
@@ -187,10 +188,28 @@ def test_nonconvex_fused_equals_batched_bits(ncv_runs):
     np.testing.assert_array_equal(runs["fused"].final_w, runs["vmap"].final_w)
 
 
+class _Quadratic(Objective):
+    """An objective neither sweep kernel computes."""
+
+    n = 4
+
+    def data_args(self):
+        return (torch.zeros((self.n, 3)),)
+
+    def init_params(self):
+        return torch.zeros(3)
+
+
 def test_fused_mode_refuses_the_mlp_with_its_reason(mlp):
+    """The MLP's fused mode runs on its own kernel
+    (`kernels.sweep_epoch_mlp`): `plan_sweep` admits it, and still refuses,
+    with the reason, an objective that no sweep kernel computes."""
     _, pm = mlp
+    plan = psw.plan_sweep(pm, 1, [psw.SweepSpec(engine_mode="fused")])
+    assert all(key[-1] for key in plan.groups)
     with pytest.raises(NotImplementedError, match="per-sample gradient"):
-        psw.plan_sweep(pm, 1, [psw.SweepSpec(engine_mode="fused")])
+        psw.plan_sweep(_Quadratic(), 1, [psw.SweepSpec(engine_mode="fused")])
+    psw.plan_sweep(_Quadratic(), 1, [psw.SweepSpec(engine_mode="vmap")])
     psw.plan_sweep(pm, 1, [psw.SweepSpec(engine_mode="vmap")])
 
 
