@@ -1805,35 +1805,38 @@ def phase_objectives(ds):
 
 
 # phase `objectives_mlp_fused`: the MLP's own sweep kernel (sweep_epoch_mlp)
-FP64_FLOP_PER_S = 34e12        # H100 SXM float64 outside the tensor cores
+FP64_FLOP_PER_S = 67e12        # H100 SXM float64 on the tensor cores (DMMA)
 MLP_DEFAULTS = dict(vocab_size=32, seq_len=8, d_model=16, d_hidden=32)
 MLP_WIDE = dict(vocab_size=256, seq_len=8, d_model=64, d_hidden=256)
 MLP_ACTIVATIONS = ("relu", "gelu", "silu")
 MLP_DROP = 0.1                 # the unlock row's drop probability
-MLP_PLAIN_UPDATES = (128, 32)  # the epoch checks' M̃: defaults, wide
+MLP_PLAIN_UPDATES = (256, 32)  # the epoch checks' M̃: defaults (4n), wide
 
 
-def mlp_flops(S, V, D, H, d, grad=True):
+def mlp_flops(S, V, D, H, grad=True):
     """float64 operations of one sample's pass: the forward (the products,
-    the norm, the activation, the log-sum-exp) and with ``grad`` the
-    backward and the 2 S operations of each gradient coordinate."""
+    the norm, the activation, the log-sum-exp; the embedding is a gather)
+    and with ``grad`` the backward: the input gradients, then the weights'
+    (2 S per coordinate of w1 and w2, 2 S per norm coordinate, S per b1
+    coordinate, and S D for the scatter of the embedding's S rows)."""
     fwd = 2 * S * (D * H + H * V) + 6 * S * D + 10 * S * H + 4 * S * V
     bwd = 2 * S * (V * H + H * D) + 10 * S * D + 2 * S * H + 3 * S * V
-    return fwd + (bwd + 2 * S * d if grad else 0)
+    wgrad = 2 * S * (D * H + H * V) + 3 * S * D + S * H
+    return fwd + (bwd + wgrad if grad else 0)
 
 
 def mlp_epoch_bound(S, V, D, H, d, n, C, total, svrg):
     """(bound ms, what bounds it) of one epoch launch for C rows: each input
     read once (tokens, targets, w, mu) and each output written once, against
     the float64 work (one or two gradients per update, the loss's n
-    forwards) plus ~6 float32 operations per coordinate of each update."""
+    forwards) plus ~6 float32 operations per coordinate of each update,
+    counted at the float64 rate by the ratio of the two peaks."""
     nbytes = 4 * (2 * n * S + (2 if svrg else 1) * C * d + C * d + 2 * C)
-    f64 = C * (total * (2 if svrg else 1) * mlp_flops(S, V, D, H, d)
-               + n * mlp_flops(S, V, D, H, d, grad=False))
-    t_ops = f64 / FP64_FLOP_PER_S + C * total * 6 * d / FP32_FLOP_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
-        else "bytes"
+    f64 = C * (total * (2 if svrg else 1) * mlp_flops(S, V, D, H)
+               + n * mlp_flops(S, V, D, H, grad=False))
+    f32 = C * total * 6 * d
+    return bound_ms(nbytes, f64 + f32 * FP64_FLOP_PER_S / FP32_FLOP_PER_S,
+                    FP64_FLOP_PER_S)
 
 
 def mlp_gaps(got, want):
@@ -1975,7 +1978,8 @@ def mlp_fused_vs_batched(name, widths):
     the fused run launches `sweep_epoch_mlp` groups x epochs times for the
     epochs, once per epoch for μ and once for the starting loss, and no
     K1, K2 or K3; s per epoch of each; then the fused group's epoch launch
-    alone, timed beside its plain version and its bound."""
+    alone, timed beside its plain version and its bound, and held against
+    the plain version's iterates and losses at rtol 1e-5, atol 1e-6."""
     from repro_torch import prng
     from repro_torch.core.objectives import mlp_lm_objective
     from repro_torch.kernels.sweep_epoch_mlp.ops import (mlp_full_grad,
@@ -2018,9 +2022,15 @@ def mlp_fused_vs_batched(name, widths):
                         reps=5, inner=3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sweep_epoch_mlp_ref(*args, **kw)
+    ref, ref_loss = sweep_epoch_mlp_ref(*args, **kw)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
+    out, loss = sweep_epoch_mlp(*args, **kw)
+    e_gap, e_eq, e_close = mlp_gaps(out, ref)
+    l_gap, l_eq, l_close = mlp_gaps(loss, ref_loss)
+    vs_plain = dict(rtol=1e-5, atol=1e-6, within=e_close and l_close,
+                    max_abs_err=e_gap, equal_bits=e_eq, loss_abs_err=l_gap,
+                    loss_equal_bits=l_eq)
     S, V, D, H = (obj.seq_len, obj.vocab_size, obj.d_model, obj.d_hidden)
     bnd, by = mlp_epoch_bound(S, V, D, H, obj.flat_dim, obj.n, C, total, True)
     rec = dict(phase="objectives_mlp_fused", widths=name, n=obj.n,
@@ -2034,7 +2044,8 @@ def mlp_fused_vs_batched(name, widths):
                                      max_abs_dhist=gap_h, max_abs_dw=gap_w),
                epoch_ms=ms, epoch_us_per_update=1e3 * ms / total,
                full_grad_ms=full_ms, epoch_plain_ms=plain_ms,
-               epoch_bound_ms=bnd, epoch_bound_by=by, library_ms=None)
+               epoch_bound_ms=bnd, epoch_bound_by=by, library_ms=None,
+               epoch_vs_plain=vs_plain)
     emit(**rec)
     if m_counts != want_m or f_counts != want_f:
         raise AssertionError(f"objectives_mlp_fused ({name}): launches "
@@ -2044,6 +2055,10 @@ def mlp_fused_vs_batched(name, widths):
         raise AssertionError(f"objectives_mlp_fused ({name}): fused rows "
                              f"outside rtol 1e-5, atol 1e-6 of the batched "
                              f"rows: {rec['fused_vs_batched']}")
+    if not vs_plain["within"]:
+        raise AssertionError(f"objectives_mlp_fused ({name}): the epoch "
+                             f"launch disagrees with its plain version: "
+                             f"{vs_plain}")
     return rec
 
 
@@ -2060,10 +2075,11 @@ def phase_objectives_mlp_fused():
     epochs = mlp_epoch_vs_plain(gen)
     frontier = mlp_fused_vs_batched("frontier", MLP_WIDTHS)
     defaults = mlp_fused_vs_batched("defaults", MLP_DEFAULTS)
-    checked = [r for r in epochs if r["d"] == epochs[0]["d"]]
+    checked = ([r for r in epochs if r["d"] == epochs[0]["d"]]
+               + [frontier["epoch_vs_plain"], defaults["epoch_vs_plain"]])
     rec = dict(
         max_abs_err=max(max(r["max_abs_err"], r["loss_abs_err"])
-                        for r in epochs),
+                        for r in epochs + checked),
         equal_bits=float(np.mean([r["equal_bits"] for r in checked])),
         ms=frontier["epoch_ms"], plain_ms=frontier["epoch_plain_ms"],
         bound_ms=frontier["epoch_bound_ms"],

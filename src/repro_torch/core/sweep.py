@@ -87,6 +87,7 @@ from repro_torch.core.asysvrg import (
     DELAY_IDS,
     SCHEME_IDS,
     _asysvrg_epochs_core,
+    _masked_epochs,
     _resolve_steps,
 )
 from repro_torch.core.hogwild import _hogwild_epochs_core, _resolve_hogwild_steps
@@ -94,7 +95,9 @@ from repro_torch.core.objective import (LogisticRegression, Objective,
                                         get_objective, params_from_flat)
 from repro_torch.core.objectives import MLPObjective, NonconvexLogistic
 from repro_torch.kernels.dispatch import mode_tags
-from repro_torch.kernels.sweep_epoch import fused_group_fn
+from repro_torch.kernels.sweep_epoch import sweep_epoch
+from repro_torch.kernels.sweep_epoch_mlp import (mlp_full_grad, mlp_loss,
+                                                 sweep_epoch_mlp)
 from repro_torch.obs import ledger as _ledger
 from repro_torch.obs.trace import tracer as _tracer
 from repro_torch.sharding.context import all_gather, current_mesh
@@ -342,10 +345,32 @@ def _executed_spec(spec: SweepSpec, r: _Resolved) -> SweepSpec:
                                engine_mode="fused" if r.fused else "vmap")
 
 
-# the objectives whose math the fused kernels compute (their data is
-# (X, y, *penalty) or the MLP's (tokens, targets),
-# `kernels.sweep_epoch.fused_group_fn`)
-_FUSED_OBJECTIVES = (LogisticRegression, NonconvexLogistic, MLPObjective)
+def _logistic_epoch(obj: Objective, data, w, svrg: bool, rows, kw):
+    """One fused epoch of a logistic group, data ``(X, y, *penalty)``: K2
+    for μ (the objective's full gradient), then K3."""
+    X, y, *reg = data
+    mu = obj.flat_full_grad(data, w) if svrg else None
+    return sweep_epoch(X, y, tuple(reg), w, mu, *rows, **kw)
+
+
+def _mlp_epoch(obj: MLPObjective, data, w, svrg: bool, rows, kw):
+    """One fused epoch of an MLP group, data ``(tokens, targets)``:
+    ``sweep_epoch_mlp``'s full-gradient entry for μ, then its epoch
+    entry."""
+    mu = mlp_full_grad(*data, w, obj.kernel_widths)[0] if svrg else None
+    return sweep_epoch_mlp(*data, w, mu, *rows, widths=obj.kernel_widths,
+                           **kw)
+
+
+def _mlp_loss0(obj: MLPObjective, data, w0):
+    return mlp_loss(*data, w0, obj.kernel_widths)
+
+
+# the objectives whose math the fused kernels compute: each one's epoch
+# launches and its starting loss's launch (None: the objective's own loss)
+_FUSED_OBJECTIVES = {LogisticRegression: (_logistic_epoch, None),
+                     NonconvexLogistic: (_logistic_epoch, None),
+                     MLPObjective: (_mlp_epoch, _mlp_loss0)}
 
 # (objective fingerprint, engine, M̃, option, buf_len, fused)
 _GroupKey = Tuple[int, str, int, int, int, bool]
@@ -507,6 +532,46 @@ def _hogwild_group_fn(obj: Objective, num_data: int, epochs: int, total: int,
     return group
 
 
+def _fused_group_fn(obj: Objective, num_data: int, *, engine: str,
+                    epochs: int, total: int, buf_len: int, option: int,
+                    drop_prob: float):
+    """The fused engine for one group (see `_asysvrg_group_fn`): each epoch
+    is the objective's launches in `_FUSED_OBJECTIVES`, over the rows still
+    live. Epochs and per-row budgets run through
+    `core.asysvrg._masked_epochs`, each epoch's losses come from the
+    epoch's launch; Hogwild! rows decay γ ← decay·γ after each live
+    epoch, in float32."""
+    hogwild = engine == _ENGINE_HOGWILD
+    run_epoch, start_loss = _FUSED_OBJECTIVES[type(obj)]
+    kw = dict(engine=engine, total=total, buf_len=buf_len, option=option,
+              drop_prob=drop_prob)
+
+    def group(*all_args):
+        data = all_args[:num_data]
+        if hogwild:
+            (keys, gammas, decays, taus, scheme_ids, delay_ids, row_epochs,
+             w0_rows) = all_args[num_data:]
+            steps = gammas.clone()
+        else:
+            keys, steps, taus, scheme_ids, delay_ids, row_epochs, w0_rows = \
+                all_args[num_data:]
+
+        def epoch(live, w, sub):
+            sel = torch.tensor(live, device=w.device)
+            rows = (sub, steps[sel], [taus[c] for c in live],
+                    [scheme_ids[c] for c in live], [delay_ids[c] for c in live])
+            w_new, loss = run_epoch(obj, data, w, not hogwild, rows, kw)
+            if hogwild:
+                steps[sel] = steps[sel] * decays[sel]
+            return w_new, loss
+
+        loss0 = None if start_loss is None else start_loss(obj, data, w0_rows)
+        return _masked_epochs(obj, data, w0_rows, keys, epochs=epochs,
+                              row_epochs=row_epochs, epoch=epoch, loss0=loss0)
+
+    return group
+
+
 def _group_fn(engine: str, *, obj: Objective, num_data: int, epochs: int,
               total: int, buf_len: int, option: int, drop_prob: float,
               fused: bool):
@@ -514,9 +579,9 @@ def _group_fn(engine: str, *, obj: Objective, num_data: int, epochs: int,
     builds each at most once per key. The body closes over ``obj``'s
     methods only: the data and every per-row value are call arguments."""
     if fused:
-        return fused_group_fn(obj, num_data, engine=engine, epochs=epochs,
-                              total=total, buf_len=buf_len, option=option,
-                              drop_prob=drop_prob)
+        return _fused_group_fn(obj, num_data, engine=engine, epochs=epochs,
+                               total=total, buf_len=buf_len, option=option,
+                               drop_prob=drop_prob)
     if engine == _ENGINE_HOGWILD:
         return _hogwild_group_fn(obj, num_data, epochs, total, buf_len,
                                  drop_prob)

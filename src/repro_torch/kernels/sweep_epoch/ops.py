@@ -1,5 +1,5 @@
-"""Public sweep-epoch op: device dispatch, input checks, placement by size,
-launch counts, and the fused group body of `repro_torch.core.sweep`.
+"""Public sweep-epoch op: device dispatch, input checks, placement by size
+and launch counts.
 
 `sweep_epoch` runs one epoch's inner loop for the C rows of a group and
 the loss at each row's new iterate: the plain version
@@ -21,16 +21,12 @@ Every launch counts in ``sweep_epoch.launches`` and, by placement, in
 ``sweep_epoch.placements``. The loss runs in the same launch call, over
 all of the card's SMs.
 
-`fused_group_fn` returns a group function with the calling convention of
-the batched engine's group bodies, so `run_sweep` takes it per group when
-``SweepSpec.engine_mode == "fused"``: per epoch one ``logreg_grad`` launch
-for the rows' snapshot gradients μ (AsySVRG groups) and one
-``sweep_epoch`` launch, which also gives the epoch's losses. An
-`MLPObjective` group runs on the MLP's own kernel instead,
-``sweep_epoch_mlp`` (`repro_torch.kernels.sweep_epoch_mlp`,
-``csrc/sweep_epoch_mlp.cu``): per epoch one launch of its full-gradient
-entry for μ and one of its epoch entry, and once its loss entry for the
-starting loss.
+`run_sweep`'s fused group body (`core.sweep._fused_group_fn`) takes it
+per epoch of a `LogisticRegression` or `NonconvexLogistic` group, after
+one ``logreg_grad`` launch for the rows' snapshot gradients μ (AsySVRG
+groups); the launch also gives the epoch's losses. An `MLPObjective`
+group runs on the MLP's own kernel instead, ``sweep_epoch_mlp``
+(`repro_torch.kernels.sweep_epoch_mlp`, ``csrc/sweep_epoch_mlp.cu``).
 """
 from __future__ import annotations
 
@@ -39,12 +35,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.asysvrg import _masked_epochs
 from repro_torch.kernels import dispatch, regularizer
 from repro_torch.kernels.sweep_epoch import kernel
 from repro_torch.kernels.sweep_epoch.ref import check_rows, sweep_epoch_ref
-from repro_torch.kernels.sweep_epoch_mlp.ops import (mlp_full_grad, mlp_loss,
-                                                     sweep_epoch_mlp)
 
 SHARED, GLOBAL, GLOBAL_L2 = "shared", "global", "global_l2"
 PLACEMENTS = (SHARED, GLOBAL, GLOBAL_L2)  # in order of preference
@@ -181,56 +174,3 @@ def kernel_draws(key, n: int, d: int, tau: int, delay_id: int, steps: int):
     if rc != 0:
         raise RuntimeError(f"sweep_epoch draws launch failed: CUDA error {rc}")
     return idx.long(), age.long(), read_u, drop_u
-
-
-def fused_group_fn(obj, num_data: int, *, engine: str, epochs: int,
-                   total: int, buf_len: int, option: int, drop_prob: float):
-    """The fused group body for one (engine, M̃, option, buf_len) group:
-    ``group(*data_args, *row_args) -> (w_fin [C, d], hist [C, epochs+1])``,
-    the calling convention of `core.sweep._asysvrg_group_fn` /
-    `_hogwild_group_fn`. The objective's data is ``(X, y, *reg)``: ``(X,
-    y, l2)`` for `LogisticRegression`, ``(X, y, lam, alpha)`` for
-    `NonconvexLogistic`; for an `MLPObjective` (one with ``kernel_widths``)
-    it is ``(tokens, targets)`` and the group runs on
-    ``sweep_epoch_mlp``: its loss entry gives the starting loss, its
-    full-gradient entry each epoch's μ (AsySVRG groups), its epoch entry
-    the epoch. Epochs and per-row budgets run through
-    `core.asysvrg._masked_epochs`, each epoch's losses come from the
-    epoch's launch; Hogwild! rows decay γ ← decay·γ after each live
-    epoch, in float32."""
-    hogwild = engine == "hogwild"
-    widths = getattr(obj, "kernel_widths", None)
-
-    def group(*all_args):
-        data = all_args[:num_data]
-        if hogwild:
-            (keys, gammas, decays, taus, scheme_ids, delay_ids, row_epochs,
-             w0_rows) = all_args[num_data:]
-            steps = gammas.clone()
-        else:
-            keys, steps, taus, scheme_ids, delay_ids, row_epochs, w0_rows = \
-                all_args[num_data:]
-
-        def epoch(live, w, sub):
-            sel = torch.tensor(live, device=w.device)
-            rows = (sub, steps[sel], [taus[c] for c in live],
-                    [scheme_ids[c] for c in live], [delay_ids[c] for c in live])
-            kw = dict(engine=engine, total=total, buf_len=buf_len,
-                      option=option, drop_prob=drop_prob)
-            if widths is None:
-                X, y, *reg = data
-                mu = None if hogwild else obj.flat_full_grad(data, w)
-                w_new, loss = sweep_epoch(X, y, tuple(reg), w, mu, *rows, **kw)
-            else:
-                mu = None if hogwild else mlp_full_grad(*data, w, widths)[0]
-                w_new, loss = sweep_epoch_mlp(*data, w, mu, *rows,
-                                              widths=widths, **kw)
-            if hogwild:
-                steps[sel] = steps[sel] * decays[sel]
-            return w_new, loss
-
-        loss0 = None if widths is None else mlp_loss(*data, w0_rows, widths)
-        return _masked_epochs(obj, data, w0_rows, keys, epochs=epochs,
-                              row_epochs=row_epochs, epoch=epoch, loss0=loss0)
-
-    return group

@@ -18,6 +18,7 @@ from repro_torch.core.svrg import run_svrg
 from repro_torch.core.sweep import SweepSpec, run_sweep
 from repro_torch.kernels.flash_attention.ops import gqa_flash
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels import regularizer
 from repro_torch.kernels.logreg_grad.ops import logreg_grad
 from repro_torch.kernels.logreg_grad.ref import logreg_grad_ref
 from repro_torch.kernels.svrg_update.ops import svrg_update
@@ -536,7 +537,7 @@ def test_sweep_epoch_kernel_refuses_bytes_off_its_layout(gen):
                            row_ints, None, out, terms, loss, engine="asysvrg",
                            total=8, buf_len=4, option=2, drop=False,
                            staged=staged, smem_bytes=smem,
-                           l2=1e-3, keep_p=1.0)
+                           reg=regularizer.regularizer(1e-3), keep_p=1.0)
         assert rc != 0
 
 

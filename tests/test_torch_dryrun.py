@@ -481,7 +481,7 @@ from repro_torch.models import mamba
 mesh = dryrun.cell_mesh(sys.argv[1])
 cfg = get_config("falcon-mamba-7b").with_overrides(num_layers=2)
 shape = SHAPE_GRID["train_4k"]
-mamba.CHUNK = shape.seq_len   # one scan chunk: a quarter of the trace
+mamba.CHUNK = shape.seq_len   # one scan chunk: no loop over 16 chunks
 rec = dryrun.trace_cell(cfg, shape, mesh, variant="sgd", microbatches=1)
 print("CELL", json.dumps([mesh.size(), rec["memory"]["peak_per_device_bytes"],
                           sum(v for k, v in rec["collectives"].items()
@@ -490,8 +490,12 @@ print("CELL", json.dumps([mesh.size(), rec["memory"]["peak_per_device_bytes"],
 
 
 # the 2-layer falcon-mamba cell's processes: the (2, 16, 16) mesh's trace
-# alone takes ~60 s on one core (`DTensor`'s strategies over three mesh dims),
-# twice the reduced grid's per-process work, so its deadline is doubled
+# alone takes ~57 s on one core (`DTensor`'s strategies over three mesh dims),
+# twice the reduced grid's per-process work, so its deadline is doubled. The
+# scan runs in one chunk: in its 16 chunks, as the CLI and `chip_smoke.py`
+# trace it, the pair took ~70 s alone and up to 239 s beside the whole
+# suite; with one chunk the (2, 16, 16) trace fails on the same
+# `S(1) to P(sum)` error without the repair.
 MAMBA_DEADLINE_S = 2 * GRID_DEADLINE_S
 
 

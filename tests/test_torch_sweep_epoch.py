@@ -22,7 +22,7 @@ from repro.core.objective import LogisticRegression as JaxLogReg
 from repro_torch import prng
 from repro_torch.core import sweep as psw
 from repro_torch.core.objective import LogisticRegression, Objective
-from repro_torch.kernels.sweep_epoch import fused_group_fn, sweep_epoch
+from repro_torch.kernels.sweep_epoch import sweep_epoch
 from repro_torch.kernels.sweep_epoch.ops import (PLACEMENTS, STAGES,
                                                  choose_placement,
                                                  shared_bytes)
@@ -270,8 +270,8 @@ def test_fused_group_fn_calling_convention(objs):
     returns (w_fin [C, d], hist [C, E+1])."""
     _, po = objs
     data = po.data_args()
-    run = fused_group_fn(po, len(data), engine="hogwild", epochs=2, total=12,
-                         buf_len=4, option=0, drop_prob=0.1)
+    run = psw._fused_group_fn(po, len(data), engine="hogwild", epochs=2,
+                              total=12, buf_len=4, option=0, drop_prob=0.1)
     w0 = torch.zeros((2, po.p))
     w_fin, hist = run(*data, prng.keys_from_seeds([0, 1]),
                       torch.tensor([0.5, 0.5]), torch.tensor([0.9, 0.9]),
