@@ -57,14 +57,20 @@ just after; the paper's paths at the full width of the rcv1 configuration
     and silu at the objective's default widths (rtol 1e-6, atol 1e-7), one
     epoch launch (3 AsySVRG rows, the unlock row dropping 10%, and a
     Hogwild! row) against its plain version at those widths at both
-    placements and at V 256, D 64, H 256 (d 98624, the vectors in device
-    memory), rtol 1e-5, atol 1e-6, the share of equal bits recorded; then
-    `run_sweep(engine_mode="fused")` of the MLP at the frontier widths and
-    at the defaults, 2 epochs, against the batched engine (rtol 1e-5, atol
-    1e-6), `sweep_epoch_mlp` launched groups x epochs times for the epochs,
-    once per epoch for μ and once for the starting loss, K1-K3 never; s per
-    epoch of each, and the epoch launch timed beside its plain version and
-    its float64 bound;
+    placements, at S 20 (positions cycling over 8 warps) and at V 256, D
+    64, H 256 (d 98624, the vectors in device memory), rtol 1e-5, atol
+    1e-6, the share of equal bits recorded, each launch timed beside its
+    bound; then `run_sweep(engine_mode="fused")` of the MLP at the
+    frontier widths and at the defaults, 2 epochs, against the batched
+    engine (rtol 1e-5, atol 1e-6), `sweep_epoch_mlp` launched groups x
+    epochs times for the epochs, once per epoch for μ and once for the
+    starting loss, K1-K3 never; s per epoch of each, the epoch launch
+    timed beside its plain version and its float64 bound (one launch a
+    window, then 3 back to back, then one with the rows' settings copied
+    from the host; and with consistent and unlock rows, whose draws
+    differ), the full gradient's entry against its plain version, and at
+    d 98624 the unstaged full-gradient, loss and sample-gradient blocks
+    against theirs;
   * phase `sharding` (after phases `objectives` and `server`), its ranks
     spawned processes under a 120 s deadline each: a 2-rank `gloo` world,
     both ranks on this card (two processes time-sharing it, not a
@@ -1810,7 +1816,8 @@ MLP_DEFAULTS = dict(vocab_size=32, seq_len=8, d_model=16, d_hidden=32)
 MLP_WIDE = dict(vocab_size=256, seq_len=8, d_model=64, d_hidden=256)
 MLP_ACTIVATIONS = ("relu", "gelu", "silu")
 MLP_DROP = 0.1                 # the unlock row's drop probability
-MLP_PLAIN_UPDATES = (256, 32)  # the epoch checks' M̃: defaults (4n), wide
+MLP_PLAIN_UPDATES = (256, 32, 64)  # the epoch checks' M̃: defaults, wide, S 20
+MLP_S20 = dict(MLP_DEFAULTS, seq_len=20)   # positions cycle over 8 warps
 
 
 def mlp_flops(S, V, D, H, grad=True):
@@ -1884,9 +1891,10 @@ def mlp_epoch_vs_plain(gen):
     """One epoch launch against its plain version on the card from the same
     inputs: 3 AsySVRG rows (consistent, inconsistent, unlock with drop_prob
     `MLP_DROP`, τ 2) and one Hogwild! unlock row; at the default widths at
-    both placements, and at V 256, D 64, H 256 (d 98624), where the
-    vectors go to the device buffer. Iterates and losses within rtol 1e-5,
-    atol 1e-6; the largest gap and the share of equal bits recorded."""
+    both placements, at V 256, D 64, H 256 (d 98624), where the vectors go
+    to the device buffer, and at S 20. Iterates and losses within rtol
+    1e-5, atol 1e-6; the largest gap and the share of equal bits recorded;
+    each launch timed (median of 3) beside its float64 bound."""
     from repro_torch import prng
     from repro_torch.core.objectives import mlp_lm_objective
     from repro_torch.kernels.sweep_epoch_mlp import ops as mlp_ops
@@ -1897,7 +1905,8 @@ def mlp_epoch_vs_plain(gen):
     for widths, total, placements in (
             (MLP_DEFAULTS, MLP_PLAIN_UPDATES[0], (mlp_ops.SHARED,
                                                   mlp_ops.GLOBAL)),
-            (MLP_WIDE, MLP_PLAIN_UPDATES[1], (None,))):
+            (MLP_WIDE, MLP_PLAIN_UPDATES[1], (None,)),
+            (MLP_S20, MLP_PLAIN_UPDATES[2], (None,))):
         obj = mlp_lm_objective(64, **widths)
         data = obj.data_args()
         for engine, tau, scheme, delay in (
@@ -1919,6 +1928,10 @@ def mlp_epoch_vs_plain(gen):
             ref, ref_loss = sweep_epoch_mlp_ref(*args, **kw)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
+            S, V, D, H = (obj.seq_len, obj.vocab_size, obj.d_model,
+                          obj.d_hidden)
+            bnd, _ = mlp_epoch_bound(S, V, D, H, obj.flat_dim, obj.n, C,
+                                     total, engine == "asysvrg")
             for placement in placements:
                 before = dict(sweep_epoch_mlp.placements)
                 out, loss = sweep_epoch_mlp(*args, placement=placement, **kw)
@@ -1927,22 +1940,74 @@ def mlp_epoch_vs_plain(gen):
                          if v != before[k]]
                 gap, eq, close = mlp_gaps(out, ref)
                 lgap, leq, lclose = mlp_gaps(loss, ref_loss)
-                rec = dict(case=f"{engine}_d{obj.flat_dim}_{where[0]}",
-                           rows=C, d=obj.flat_dim, updates=total,
+                ms = median_ms(lambda: sweep_epoch_mlp(
+                    *args, placement=placement, **kw), reps=3, inner=2)
+                rec = dict(case=f"{engine}_S{S}_d{obj.flat_dim}_{where[0]}",
+                           rows=C, S=S, d=obj.flat_dim, updates=total,
                            placement=where[0], max_abs_err=gap,
                            equal_bits=eq, loss_abs_err=lgap,
                            loss_equal_bits=leq, within=close and lclose,
                            finite=bool(torch.isfinite(out).all()),
-                           plain_s=plain_s)
+                           plain_s=plain_s, ms=ms,
+                           us_per_update=1e3 * ms / total, bound_ms=bnd)
                 emit(phase="objectives_mlp_fused_epoch", **rec)
                 cases.append(rec)
     bad = [r for r in cases if not (r["within"] and r["finite"])]
-    wide = [r for r in cases if r["d"] != cases[0]["d"]]
-    if bad or any(r["placement"] != mlp_ops.GLOBAL for r in wide):
+    wide = [r for r in cases if r["d"] == 98624]
+    if (bad or not wide
+            or any(r["placement"] != mlp_ops.GLOBAL for r in wide)):
         raise AssertionError(f"sweep_epoch_mlp disagrees with its plain "
                              f"version or took the wrong placement: "
                              f"{bad or wide}")
     return cases
+
+
+def mlp_wide_entries_vs_plain(gen):
+    """At V 256, D 64, H 256 (d 98624) the full-gradient, loss and
+    sample-gradient blocks read the row where it lies, unstaged
+    (`ops.full_layout`): μ and the loss of 3 rows over n 64 against
+    `full_grad_ref` at rtol 1e-5, atol 1e-6, and 2 samples' gradients
+    against `sample_grad_ref` at rtol 1e-6, atol 1e-7."""
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp import ops as mlp_ops
+    from repro_torch.kernels.sweep_epoch_mlp.ops import (mlp_full_grad,
+                                                         mlp_loss,
+                                                         sample_grad)
+    from repro_torch.kernels.sweep_epoch_mlp.ref import (full_grad_ref,
+                                                         sample_grad_ref)
+
+    obj = mlp_lm_objective(64, **MLP_WIDE)
+    data = obj.data_args()
+    staged = mlp_ops.full_layout(obj.seq_len,
+                                 mlp_ops.MLPWidths(*obj.kernel_widths), obj.n,
+                                 mlp_ops._limit(torch.device("cuda")))[1]
+    W = (obj.init_flat() + 0.05 * torch.randn(
+        (3, obj.flat_dim), generator=gen, device="cuda")).contiguous()
+    mu, f = mlp_full_grad(*data, W, obj.kernel_widths)
+    mu_ref, f_ref = full_grad_ref(*data, W, obj.kernel_widths)
+    mu_gap, mu_eq, mu_close = mlp_gaps(mu, mu_ref)
+    f_gap, f_eq, f_close = mlp_gaps(mlp_loss(*data, W, obj.kernel_widths),
+                                    f_ref)
+    g_gaps, g_equal, g_close = [], [], True
+    for i in (0, 40):
+        g = sample_grad(*data, i, W[0], obj.kernel_widths)
+        want = sample_grad_ref(*data, torch.tensor([i], device="cuda"),
+                               W[:1], obj.kernel_widths)[0]
+        g_gaps.append(float((g - want).abs().max()))
+        g_equal.append(float((g == want).float().mean()))
+        g_close &= bool(torch.allclose(g, want, rtol=1e-6, atol=1e-7))
+    rec = dict(d=obj.flat_dim, staged=staged, max_abs_err=mu_gap,
+               equal_bits=mu_eq, loss_abs_err=f_gap, loss_equal_bits=f_eq,
+               within=mu_close and f_close,
+               sample_grad_max_abs_err=max(g_gaps),
+               sample_grad_equal_bits=float(np.mean(g_equal)),
+               sample_grad_within=g_close)
+    emit(phase="objectives_mlp_fused_wide_entries", **rec)
+    if staged or not (rec["within"] and g_close):
+        raise AssertionError(f"sweep_epoch_mlp's unstaged entries disagree "
+                             f"with their plain versions or were staged: "
+                             f"{rec}")
+    return rec
 
 
 def mlp_specs(n, engine_mode):
@@ -1982,9 +2047,12 @@ def mlp_fused_vs_batched(name, widths):
     the plain version's iterates and losses at rtol 1e-5, atol 1e-6."""
     from repro_torch import prng
     from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp import ops as mlp_ops
     from repro_torch.kernels.sweep_epoch_mlp.ops import (mlp_full_grad,
+                                                         mlp_loss,
                                                          sweep_epoch_mlp)
-    from repro_torch.kernels.sweep_epoch_mlp.ref import sweep_epoch_mlp_ref
+    from repro_torch.kernels.sweep_epoch_mlp.ref import (full_grad_ref,
+                                                         sweep_epoch_mlp_ref)
 
     obj = mlp_lm_objective(MLP_N, **widths)
     batched, b_wall, b_counts = timed_sweep(obj, RCV1_EPOCHS,
@@ -2017,7 +2085,26 @@ def mlp_fused_vs_batched(name, widths):
             [2] * C, [1] * C, [1] * C)
     kw = dict(widths=obj.kernel_widths, engine="asysvrg", total=total,
               buf_len=3, option=2, drop_prob=0.02)
+    # one launch a window, the wrapper's host time before the launch
+    # included (the kernels line's `ms`); then 3 back to back a window,
+    # where that host time overlaps the previous launch; then one a window
+    # with the rows' settings copied from the host at each call
     ms = median_ms(lambda: sweep_epoch_mlp(*args, **kw), reps=5, inner=1)
+    back_to_back_ms = median_ms(lambda: sweep_epoch_mlp(*args, **kw),
+                                reps=5, inner=3)
+
+    def uncached():
+        mlp_ops._row_ints.cache_clear()
+        return sweep_epoch_mlp(*args, **kw)
+    uncached_ms = median_ms(uncached, reps=5, inner=1)
+    # the same launch with other readers: consistent rows draw no
+    # per-coordinate words, unlock rows with drops two hashes a coordinate
+    by_reader = {"inconsistent": ms}
+    for reader, scheme, drop in (("consistent", 0, 0.0),
+                                 ("unlock_drop", 2, MLP_DROP)):
+        r_args = args[:-2] + ([scheme] * C, [1] * C)
+        by_reader[reader] = median_ms(lambda: sweep_epoch_mlp(
+            *r_args, **dict(kw, drop_prob=drop)), reps=5, inner=1)
     full_ms = median_ms(lambda: mlp_full_grad(*data, w, obj.kernel_widths),
                         reps=5, inner=3)
     torch.cuda.synchronize()
@@ -2031,6 +2118,18 @@ def mlp_fused_vs_batched(name, widths):
     vs_plain = dict(rtol=1e-5, atol=1e-6, within=e_close and l_close,
                     max_abs_err=e_gap, equal_bits=e_eq, loss_abs_err=l_gap,
                     loss_equal_bits=l_eq)
+    # the full gradient's entry against its plain version at w
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu_ref, f_ref = full_grad_ref(*data, w, obj.kernel_widths)
+    torch.cuda.synchronize()
+    full_plain_ms = 1e3 * (time.perf_counter() - t0)
+    mu_gap, mu_eq, mu_close = mlp_gaps(mu, mu_ref)
+    f_gap, f_eq, f_close = mlp_gaps(
+        mlp_loss(*data, w, obj.kernel_widths), f_ref)
+    full_vs_plain = dict(rtol=1e-5, atol=1e-6, within=mu_close and f_close,
+                         max_abs_err=mu_gap, equal_bits=mu_eq,
+                         loss_abs_err=f_gap, loss_equal_bits=f_eq)
     S, V, D, H = (obj.seq_len, obj.vocab_size, obj.d_model, obj.d_hidden)
     bnd, by = mlp_epoch_bound(S, V, D, H, obj.flat_dim, obj.n, C, total, True)
     rec = dict(phase="objectives_mlp_fused", widths=name, n=obj.n,
@@ -2043,9 +2142,12 @@ def mlp_fused_vs_batched(name, widths):
                fused_vs_batched=dict(rtol=1e-5, atol=1e-6, within=close,
                                      max_abs_dhist=gap_h, max_abs_dw=gap_w),
                epoch_ms=ms, epoch_us_per_update=1e3 * ms / total,
+               epoch_back_to_back_ms=back_to_back_ms,
+               epoch_uncached_ms=uncached_ms, epoch_ms_by_reader=by_reader,
                full_grad_ms=full_ms, epoch_plain_ms=plain_ms,
                epoch_bound_ms=bnd, epoch_bound_by=by, library_ms=None,
-               epoch_vs_plain=vs_plain)
+               epoch_vs_plain=vs_plain, full_grad_plain_ms=full_plain_ms,
+               full_grad_vs_plain=full_vs_plain)
     emit(**rec)
     if m_counts != want_m or f_counts != want_f:
         raise AssertionError(f"objectives_mlp_fused ({name}): launches "
@@ -2059,13 +2161,19 @@ def mlp_fused_vs_batched(name, widths):
         raise AssertionError(f"objectives_mlp_fused ({name}): the epoch "
                              f"launch disagrees with its plain version: "
                              f"{vs_plain}")
+    if not full_vs_plain["within"]:
+        raise AssertionError(f"objectives_mlp_fused ({name}): the full "
+                             f"gradient disagrees with its plain version: "
+                             f"{full_vs_plain}")
     return rec
 
 
 def phase_objectives_mlp_fused():
     """The MLP objective's own kernel (`sweep_epoch_mlp`) on the card: its
     backward against the objective's for each activation, one epoch launch
-    against its plain version at two widths (one per placement), and
+    against its plain version at three widths (the defaults at both
+    placements) and at S 20, the unstaged full-gradient, loss and
+    sample-gradient blocks at d 98624 against theirs, and
     `run_sweep(engine_mode="fused")` against the batched engine at the
     frontier widths and the objective's defaults. Returns the kernel's
     record for the kernels line."""
@@ -2073,15 +2181,21 @@ def phase_objectives_mlp_fused():
     gen = torch.Generator(device="cuda").manual_seed(25)
     grads = mlp_sample_grad_vs_objective(gen)
     epochs = mlp_epoch_vs_plain(gen)
+    wide_entries = mlp_wide_entries_vs_plain(gen)
     frontier = mlp_fused_vs_batched("frontier", MLP_WIDTHS)
     defaults = mlp_fused_vs_batched("defaults", MLP_DEFAULTS)
-    checked = ([r for r in epochs if r["d"] == epochs[0]["d"]]
-               + [frontier["epoch_vs_plain"], defaults["epoch_vs_plain"]])
+    checked = (epochs + [wide_entries, frontier["epoch_vs_plain"],
+                         defaults["epoch_vs_plain"]])
+    wide = [r for r in epochs if r["d"] == 98624 and r["rows"] == 3][0]
     rec = dict(
         max_abs_err=max(max(r["max_abs_err"], r["loss_abs_err"])
-                        for r in epochs + checked),
+                        for r in checked),
         equal_bits=float(np.mean([r["equal_bits"] for r in checked])),
         ms=frontier["epoch_ms"], plain_ms=frontier["epoch_plain_ms"],
+        back_to_back_ms=frontier["epoch_back_to_back_ms"],
+        defaults_back_to_back_ms=defaults["epoch_back_to_back_ms"],
+        uncached_ms=frontier["epoch_uncached_ms"],
+        defaults_uncached_ms=defaults["epoch_uncached_ms"],
         bound_ms=frontier["epoch_bound_ms"],
         bound_by=frontier["epoch_bound_by"], library_ms=None,
         launches=frontier["fused_mlp_launches"]["sweep_epoch_mlp"],
@@ -2091,11 +2205,19 @@ def phase_objectives_mlp_fused():
         defaults_launches=defaults["fused_mlp_launches"]["sweep_epoch_mlp"],
         full_grad_ms=frontier["full_grad_ms"],
         defaults_full_grad_ms=defaults["full_grad_ms"],
+        full_grad_plain_ms=frontier["full_grad_plain_ms"],
+        defaults_full_grad_plain_ms=defaults["full_grad_plain_ms"],
+        epoch_ms_by_reader=frontier["epoch_ms_by_reader"],
+        defaults_epoch_ms_by_reader=defaults["epoch_ms_by_reader"],
+        wide_ms=wide["ms"], wide_updates=wide["updates"],
+        wide_bound_ms=wide["bound_ms"], wide_plain_ms=1e3 * wide["plain_s"],
         fused_s_per_epoch=frontier["fused_s_per_epoch"],
         batched_s_per_epoch=frontier["batched_s_per_epoch"],
         defaults_fused_s_per_epoch=defaults["fused_s_per_epoch"],
         defaults_batched_s_per_epoch=defaults["batched_s_per_epoch"],
-        sample_grad_max_abs_err=max(r["max_abs_err"] for r in grads.values()),
+        sample_grad_max_abs_err=max(
+            [r["max_abs_err"] for r in grads.values()]
+            + [wide_entries["sample_grad_max_abs_err"]]),
         sample_grad_equal_bits={a: r["equal_bits"] for a, r in grads.items()},
         seconds=time.perf_counter() - t0)
     emit(phase="objectives_mlp_fused_done_record", **rec)
@@ -4282,9 +4404,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/sweep_epoch/kernel.py:92",
         **{key: mlp_fused[key] for key in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "equal_bits", "defaults_ms",
+            "bound_by", "library_ms", "equal_bits", "back_to_back_ms",
+            "defaults_back_to_back_ms", "uncached_ms",
+            "defaults_uncached_ms", "defaults_ms",
             "defaults_plain_ms", "defaults_bound_ms", "defaults_launches",
-            "full_grad_ms", "defaults_full_grad_ms", "fused_s_per_epoch",
+            "full_grad_ms", "defaults_full_grad_ms", "full_grad_plain_ms",
+            "defaults_full_grad_plain_ms", "wide_ms", "wide_updates",
+            "wide_bound_ms", "wide_plain_ms", "fused_s_per_epoch",
             "batched_s_per_epoch", "defaults_fused_s_per_epoch",
             "defaults_batched_s_per_epoch", "sample_grad_max_abs_err")}})
     emit(phase="total", seconds=time.perf_counter() - t_all)

@@ -26,11 +26,13 @@ def _entries():
     max_shared.restype = _LL
     epoch = lib.sweep_epoch_mlp_launch
     epoch.argtypes = ([_P] * 10 + [_LL] * 5 + [_I] + [_LL] * 3 + [_I] * 3
-                      + [_LL, _F, _P])
+                      + [_LL, _LL, _F, _P])
     full = lib.sweep_epoch_mlp_full
-    full.argtypes = [_P] * 6 + [_LL] * 5 + [_I] + [_LL] * 2 + [_P]
+    full.argtypes = ([_P] * 6 + [_LL] * 5 + [_I] + [_LL] * 2 + [_I]
+                     + [_LL] * 2 + [_P])
     grad = lib.sweep_epoch_mlp_sample_grad
-    grad.argtypes = [_P, _P, _LL, _LL, _P, _P] + [_LL] * 4 + [_I, _LL, _P]
+    grad.argtypes = ([_P, _P, _LL, _LL, _P, _P] + [_LL] * 4
+                     + [_I, _I, _LL, _LL, _P])
     for fn in (epoch, full, grad):
         fn.restype = _I
     return max_shared, epoch, full, grad
@@ -51,32 +53,36 @@ def _ptr(t) -> int | None:
 
 def launch(tokens, targets, w, mu, keys, step, row_ints, vecs, out, loss, *,
            dims, act: int, engine: str, total: int, buf_len: int,
-           option: int, drop: bool, smem_bytes: int, keep_p: float) -> int:
+           option: int, drop: bool, smem_bytes: int, threads: int,
+           keep_p: float) -> int:
     """out [C, d] = one epoch of ``total`` updates from w [C, d] and loss
-    [C] = f(out); ``vecs`` is a [C, vectors, d] buffer or None (vectors in
-    shared memory), ``mu`` None for Hogwild!; ``dims`` = (S, V, D, H)."""
+    [C] = f(out); ``vecs`` is the global placement's [C, row floats]
+    buffer or None (all in shared memory), ``mu`` None for Hogwild!;
+    ``dims`` = (S, V, D, H)."""
     return _entries()[1](
         tokens.data_ptr(), targets.data_ptr(), w.data_ptr(), _ptr(mu),
         keys.data_ptr(), step.data_ptr(), row_ints.data_ptr(), _ptr(vecs),
         out.data_ptr(), loss.data_ptr(), tokens.shape[0], *dims, act,
         w.shape[0], total, buf_len, ENGINE_CODES[engine], option, int(drop),
-        smem_bytes, keep_p, _stream(w))
+        smem_bytes, threads, keep_p, _stream(w))
 
 
-def full(tokens, targets, w, acc64, mu, loss, *, dims, act: int,
-         smem_bytes: int) -> int:
+def full(tokens, targets, w, acc64, mu, loss, *, dims, act: int, sets: int,
+         staged: bool, smem_bytes: int, threads: int) -> int:
     """mu [C, d] = the mean of the samples' gradients at w [C, d] (through
-    the float64 scratch ``acc64``) and loss [C] = f(w); with ``mu`` and
+    the float64 scratch ``acc64``) and loss [C] = f(w), ``sets`` samples at
+    once, each row in shared memory with ``staged``; with ``mu`` and
     ``acc64`` None the loss alone."""
     return _entries()[2](
         tokens.data_ptr(), targets.data_ptr(), w.data_ptr(), _ptr(acc64),
         _ptr(mu), loss.data_ptr(), tokens.shape[0], *dims, act, w.shape[0],
-        smem_bytes, _stream(w))
+        sets, int(staged), smem_bytes, threads, _stream(w))
 
 
 def sample_grad(tokens, targets, i: int, w, g, *, dims, act: int,
-                smem_bytes: int) -> int:
+                staged: bool, smem_bytes: int, threads: int) -> int:
     """g [d] = ∇f_i(w) for one row w [d]."""
     return _entries()[3](
         tokens.data_ptr(), targets.data_ptr(), tokens.shape[0], i,
-        w.data_ptr(), g.data_ptr(), *dims, act, smem_bytes, _stream(w))
+        w.data_ptr(), g.data_ptr(), *dims, act, int(staged), smem_bytes,
+        threads, _stream(w))

@@ -15,8 +15,18 @@ launch's placement, the first of `PLACEMENTS` whose block fits the card's
 shared memory (`shared_bytes`), as `kernels.sweep_epoch.ops.
 choose_placement` picks K3's, unless the caller names one:
 
-* ``"shared"``: all of them in shared memory beside the activations;
-* ``"global"``: all of them in a [C, vectors, d] device buffer.
+* ``"shared"``: all of them, the producer's two stages of
+  per-coordinate words and the transposed copies of w1 and w2 that the
+  backward reads (`row_bytes`), in shared memory beside the activations;
+* ``"global"``: all of them in a device buffer of `row_bytes` a row.
+
+The block's warps: each gradient set (two for AsySVRG, one for Hogwild!)
+has `position_warps` warps, one per position of the sample, and the epoch
+block adds the producer warpgroup (`epoch_threads`); a full-gradient or
+loss block runs `full_layout`'s sets samples at once, each a set
+(`full_threads`), with the row in shared memory where it fits.
+These rules and the bytes are the layout of ``csrc/sweep_epoch_mlp.cu``,
+which refuses a launch whose bytes or threads differ.
 
 A width whose activations alone exceed a block's shared memory is refused,
 with its bytes named; there is no fallback. Every counted launch (epoch,
@@ -26,6 +36,7 @@ placement in ``sweep_epoch_mlp.placements``. `sample_grad` is not counted.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -46,40 +57,98 @@ from repro_torch.kernels.sweep_epoch_mlp.ref import (
 SHARED, GLOBAL = "shared", "global"
 PLACEMENTS = (SHARED, GLOBAL)   # in order of preference
 ENTRIES = ("epoch", "full_grad", "loss")
-_HEADER_BASE = 64               # the step header before the tokens, bytes
+STAGES = 2                      # the producer's queue depth
+POSITION_WARPS = 8              # most warps of one gradient set
+PRODUCER_WARPS = 4              # the epoch block's producer warpgroup
+FULL_WARPS = 16                 # most warps of a full-gradient or loss block
+_STAGE_BASE = 48                # a stage's two mbarriers and step header
+
+
+def position_warps(S: int) -> int:
+    """Warps of one gradient set: one per position, at most 8; positions
+    cycle over them where S is larger."""
+    return min(S, POSITION_WARPS)
+
+
+def epoch_threads(S: int, engine: str) -> int:
+    """Threads of one epoch block: the sets' position warps, then the
+    producer warpgroup."""
+    sets = 2 if engine == "asysvrg" else 1
+    return 32 * (sets * position_warps(S) + PRODUCER_WARPS)
 
 
 def _acts_bytes(S: int, widths: MLPWidths) -> int:
-    """One activation set: float64 [S, D] ×4, [S, H] ×2, [S, V], 4 [S]."""
+    """One activation set: float64 [S, D] ×4, [S, H] ×2, [S, V]."""
     V, D, H = widths.vocab_size, widths.d_model, widths.d_hidden
-    return 8 * S * (4 * D + 2 * H + V + 4)
+    return 8 * S * (4 * D + 2 * H + V)
 
 
-def _header_bytes(S: int) -> int:
-    return -(-(_HEADER_BASE + 8 * S) // 16) * 16
+def _queue_bytes(S: int) -> int:
+    """The producer's stages: two mbarriers, the step header and the
+    sample's tokens and targets each."""
+    return -(-(STAGES * (_STAGE_BASE + 8 * S)) // 16) * 16
+
+
+def _trans_floats(widths: MLPWidths) -> int:
+    """One iterate's transposed copies of w2 and w1, rows of odd length:
+    [V, H | 1] and [H, D | 1]."""
+    V, D, H = widths.vocab_size, widths.d_model, widths.d_hidden
+    return V * (H | 1) + H * (D | 1)
+
+
+def row_bytes(widths: MLPWidths, buf_len: int, engine: str) -> int:
+    """Bytes of one row's state beside its activations: the iterates the
+    passes read widened to float64 with their transposed copies (u_read,
+    and u0 for AsySVRG), then float32 the buf_len ring slots, μ and acc
+    (AsySVRG) and the two stages of per-coordinate words; to 16 bytes. In
+    shared memory under ``"shared"``, the device buffer's row under
+    ``"global"``."""
+    svrg = engine == "asysvrg"
+    d = widths.flat_dim
+    floats = (buf_len + (2 if svrg else 0) + STAGES) * d
+    doubles = (2 if svrg else 1) * (d + _trans_floats(widths))
+    return -(-(8 * doubles + 4 * floats) // 16) * 16
 
 
 def shared_bytes(S: int, widths: MLPWidths, buf_len: int, engine: str,
                  placement: str) -> int:
     """Dynamic shared memory of one epoch block (one row): one activation
-    set per gradient (two for AsySVRG), the step header with the sample's
-    tokens, and with ``"shared"`` 4·d bytes for each of the read iterate,
-    the buf_len ring slots and, for AsySVRG, u0, μ and acc; the layout of
-    ``csrc/sweep_epoch_mlp.cu``, which refuses a launch whose bytes
-    differ."""
+    set per gradient (two for AsySVRG), the producer's queue, and with
+    ``"shared"`` the row's `row_bytes`."""
     if engine not in kernel.ENGINE_CODES or placement not in PLACEMENTS:
         raise ValueError(f"sweep_epoch_mlp: unknown engine {engine!r} or "
                          f"placement {placement!r}")
     svrg = engine == "asysvrg"
-    vectors = ((4 if svrg else 1) + buf_len) if placement == SHARED else 0
-    return ((2 if svrg else 1) * _acts_bytes(S, widths) + _header_bytes(S)
-            + 4 * vectors * widths.flat_dim)
+    row = row_bytes(widths, buf_len, engine) if placement == SHARED else 0
+    return (2 if svrg else 1) * _acts_bytes(S, widths) + _queue_bytes(S) + row
 
 
-def _full_bytes(S: int, widths: MLPWidths) -> int:
+def _full_bytes(S: int, widths: MLPWidths, sets: int = 1,
+                staged: bool = False) -> int:
     """Dynamic shared memory of a full-gradient, loss or sample-gradient
-    block: one activation set and the header."""
-    return _acts_bytes(S, widths) + _header_bytes(S)
+    block of ``sets`` samples, each its activations and its positions'
+    float64 losses, and with ``staged`` the row w and its transposed
+    copies widened to float64."""
+    row = widths.flat_dim + _trans_floats(widths)
+    return sets * (_acts_bytes(S, widths) + 8 * S) + (8 * row if staged else 0)
+
+
+def full_layout(S: int, widths: MLPWidths, n: int,
+                limit: int) -> tuple[int, bool]:
+    """(sets, staged) of a full-gradient or loss block: the row goes to
+    shared memory where it fits beside one set; then as many sets as
+    `FULL_WARPS` warps hold, fit in ``limit`` bytes and the n samples fill,
+    at least one."""
+    staged = _full_bytes(S, widths, 1, True) <= limit
+    room = limit - _full_bytes(S, widths, 0, staged)
+    sets = max(1, min(FULL_WARPS // position_warps(S),
+                      room // _full_bytes(S, widths), n))
+    return sets, staged
+
+
+def full_threads(S: int, sets: int) -> int:
+    """Threads of a full-gradient, loss or sample-gradient block."""
+    return 32 * sets * position_warps(S)
 
 
 def choose_placement(S: int, widths: MLPWidths, buf_len: int, engine: str,
@@ -122,6 +191,15 @@ def _check_cuda(tokens, targets, floats, ints=()) -> None:
                          f"{tokens.shape[1]} out of range (S <= 256)")
 
 
+@functools.lru_cache(maxsize=64)
+def _row_ints(tau, scheme_id, delay_id, device):
+    """The rows' [3, C] int32 settings on ``device``, made once per settings:
+    a group's every epoch launch takes the same, and a copy from host
+    memory at each launch would wait for the stream."""
+    return torch.tensor([tau, scheme_id, delay_id], dtype=torch.int32,
+                        device=device)
+
+
 def _limit(device) -> int:
     limit = kernel.max_shared_bytes(device)
     if limit < 0:
@@ -131,7 +209,8 @@ def _limit(device) -> int:
 
 
 def _fit_full(S: int, widths: MLPWidths, device) -> int:
-    """The bytes of a one-set block, refused where they do not fit."""
+    """The bytes of a one-set block, refused where they do not fit; and
+    the card's limit."""
     nbytes = _full_bytes(S, widths)
     limit = _limit(device)
     if nbytes > limit:
@@ -139,7 +218,7 @@ def _fit_full(S: int, widths: MLPWidths, device) -> int:
             f"sweep_epoch_mlp: S = {S} and widths {tuple(widths)} need "
             f"{nbytes} bytes of activations per block, more than a block "
             f"has ({limit} bytes)")
-    return nbytes
+    return limit
 
 
 def _dims(tokens, widths: MLPWidths):
@@ -197,11 +276,11 @@ def sweep_epoch_mlp(tokens, targets, w, mu, keys, step, tau: Sequence[int],
         raise ValueError(f"sweep_epoch_mlp: placement {where!r} needs "
                          f"{nbytes} bytes of shared memory per block, more "
                          f"than a block has ({limit} bytes)")
-    row_ints = torch.tensor([list(tau), list(scheme_id), list(delay_id)],
-                            dtype=torch.int32, device=w.device)
-    vectors = (4 if svrg else 1) + buf_len
+    row_ints = _row_ints(tuple(tau), tuple(scheme_id), tuple(delay_id),
+                         w.device)
     vecs = (None if where == SHARED else
-            torch.empty((C, vectors, d), dtype=torch.float32, device=w.device))
+            torch.empty((C, row_bytes(widths, buf_len, engine) // 4),
+                        dtype=torch.float32, device=w.device))
     out = torch.empty((C, d), dtype=torch.float32, device=w.device)
     loss = torch.empty(C, dtype=torch.float32, device=w.device)
     rc = kernel.launch(tokens, targets, w, mu, keys, step, row_ints, vecs,
@@ -209,6 +288,7 @@ def sweep_epoch_mlp(tokens, targets, w, mu, keys, step, tau: Sequence[int],
                        act=ACTIVATIONS.index(widths.activation),
                        engine=engine, total=total, buf_len=buf_len,
                        option=option, drop=drop_prob > 0, smem_bytes=nbytes,
+                       threads=epoch_threads(S, engine),
                        keep_p=float(np.float32(1.0 - drop_prob)))
     if rc != 0:
         raise RuntimeError(f"sweep_epoch_mlp kernel launch failed ({where}): "
@@ -233,7 +313,8 @@ def _full(tokens, targets, w, widths: MLPWidths, grad: bool):
     if w.dim() != 2:
         raise ValueError(f"sweep_epoch_mlp: w {tuple(w.shape)} must be [C, d]")
     _check_cuda(tokens, targets, (w,))
-    nbytes = _fit_full(tokens.shape[1], widths, w.device)
+    n, S = tokens.shape
+    sets, staged = full_layout(S, widths, n, _fit_full(S, widths, w.device))
     C, d = w.shape
     acc64 = (torch.empty((C, d), dtype=torch.float64, device=w.device)
              if grad else None)
@@ -242,8 +323,10 @@ def _full(tokens, targets, w, widths: MLPWidths, grad: bool):
     loss = torch.empty(C, dtype=torch.float32, device=w.device)
     rc = kernel.full(tokens, targets, w, acc64, mu, loss,
                      dims=_dims(tokens, widths),
-                     act=ACTIVATIONS.index(widths.activation),
-                     smem_bytes=nbytes)
+                     act=ACTIVATIONS.index(widths.activation), sets=sets,
+                     staged=staged,
+                     smem_bytes=_full_bytes(S, widths, sets, staged),
+                     threads=full_threads(S, sets))
     if rc != 0:
         raise RuntimeError(f"sweep_epoch_mlp full-gradient launch failed: "
                            f"CUDA error {rc}")
@@ -275,12 +358,15 @@ def sample_grad(tokens, targets, i: int, w, widths: MLPWidths):
         idx = torch.tensor([i], device=w.device)
         return sample_grad_ref(tokens, targets, idx, w[None], widths)[0]
     _check_cuda(tokens, targets, (w,))
-    nbytes = _fit_full(tokens.shape[1], widths, w.device)
+    S = tokens.shape[1]
+    staged = full_layout(S, widths, 1, _fit_full(S, widths, w.device))[1]
     g = torch.empty_like(w)
     rc = kernel.sample_grad(tokens, targets, i, w, g,
                             dims=_dims(tokens, widths),
                             act=ACTIVATIONS.index(widths.activation),
-                            smem_bytes=nbytes)
+                            staged=staged,
+                            smem_bytes=_full_bytes(S, widths, 1, staged),
+                            threads=full_threads(S, 1))
     if rc != 0:
         raise RuntimeError(f"sample_grad launch failed: CUDA error {rc}")
     return g

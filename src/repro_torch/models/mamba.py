@@ -25,10 +25,12 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tf
 from repro_torch.models.rglru import _causal_conv, chunked, scan, softplus
-from repro_torch.sharding.context import constrain, settle, write
+from repro_torch.sharding.context import (constrain, propagate_back, settle,
+                                         write)
 from repro_torch.sharding.rules import ParamDef
 
 CHUNK = 256
+SCAN_AXES = ("batch", None, "mlp")   # a scan chunk's logical axes [B, C, Di]
 # channel sharding over the `model` mesh axis through the "mlp" rule
 RESIDUAL_AXES = ("batch", None, "mlp")
 
@@ -94,7 +96,7 @@ def selective_scan(x, lp: Dict, cfg: ModelConfig, h0=None):
                          device=x.device)
 
     def chunk_body(h_prev, x_c):
-        x_c = constrain(x_c, ("batch", None, "mlp"))
+        x_c = constrain(x_c, SCAN_AXES)
         dA, dBx, C = _ssm_params(x_c, lp, cfg)
         P, Ss = scan(dA, dBx)
         hs = Ss + P * h_prev[:, None, :, :]        # states at every position
@@ -111,8 +113,13 @@ def _mamba_block(cfg: ModelConfig, lp: Dict, h, conv_state=None,
     """Returns (h_out, (new_conv_state, new_ssm_state))."""
     x = nn.apply_norm(cfg, h, lp["norm"])
     xb, z = x.matmul(lp["in_proj"]).chunk(2, dim=-1)
+    # the scan's input and the gate on the channels' sharding, the layout of
+    # the scan's chunks (`selective_scan`): XLA carries that layout back to
+    # them, `DTensor` does not, and without it every chunk (and its gradient)
+    # gathers the whole [B, S, Di] over `model`
+    z = propagate_back(z, SCAN_AXES)
     xb, new_conv = _causal_conv(xb, lp["conv_w"], lp["conv_b"], conv_state)
-    xb = F.silu(xb)
+    xb = propagate_back(F.silu(xb), SCAN_AXES)
     y, h_last = selective_scan(xb, lp, cfg, h0=ssm_state)
     y = y + lp["D_skip"] * xb
     y = y * F.silu(z)

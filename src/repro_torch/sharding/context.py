@@ -457,6 +457,19 @@ def local_len(x, dim: int) -> int:
     return (x.to_local() if isinstance(x, DTensor) else x).shape[dim]
 
 
+def propagate_back(x, logical_axes: Sequence[Optional[str]]):
+    """``x`` placed by the logical axes of a layout that a later site sets
+    for what ``x`` feeds: XLA's sharding propagation carries such a layout
+    back to the tensors a site consumes, `DTensor` carries layouts forward
+    only. Moves only what that layout moves there; ``x`` unchanged outside
+    a mesh or for a plain tensor."""
+    mesh = _dtensor_mesh(x)
+    if mesh is None:
+        return x
+    spec = logical_to_pspec(x.shape, logical_axes, mesh, current_rules())
+    return settle(x).redistribute(mesh, spec_to_placements(spec, mesh))
+
+
 def follow_seq(x, ref):
     """``x`` [B, S, ...] sharded on its sequence dim as `DTensor` ``ref``
     [B, S, ...] is (a local cut: no data moves); anything else as it

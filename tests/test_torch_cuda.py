@@ -440,6 +440,52 @@ def test_sweep_epoch_mlp_kernel_matches_plain(gen, engine, placement):
     torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("seq_len", [5, 20])
+@pytest.mark.parametrize("engine", ["asysvrg", "hogwild"])
+def test_sweep_epoch_mlp_kernel_cycles_positions(gen, engine, seq_len):
+    """One epoch launch against the plain version where the positions do
+    not fill the warps evenly: S 5 (5 position warps a set) and S 20 (8
+    warps, positions cycling, the last round 4 warps short); the three
+    readers, the unlock row dropping 10%; rtol 1e-5, atol 1e-6."""
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp.ops import sweep_epoch_mlp
+    from repro_torch.kernels.sweep_epoch_mlp.ref import sweep_epoch_mlp_ref
+
+    obj = mlp_lm_objective(32, **dict(MLP_KW, seq_len=seq_len))
+    C, d = 3, obj.flat_dim
+    w = obj.init_flat() + 0.05 * torch.randn((C, d), generator=gen,
+                                             device="cuda")
+    mu = 1e-3 * torch.randn((C, d), generator=gen, device="cuda")
+    args = (*obj.data_args(), w, mu if engine == "asysvrg" else None,
+            prng.keys_from_seeds(range(C), "cuda"),
+            torch.full((C,), 0.1, device="cuda"), [2, 2, 1], [0, 1, 2],
+            [1, 2, 1])
+    kw = dict(widths=obj.kernel_widths, engine=engine, total=48, buf_len=3,
+              option=2, drop_prob=0.1)
+    out, loss = sweep_epoch_mlp(*args, **kw)
+    ref, ref_loss = sweep_epoch_mlp_ref(*args, **kw)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=1e-6)
+
+
+def test_sweep_epoch_mlp_full_grad_and_loss_at_64_samples(gen):
+    """The full gradient and the loss over n 64, several samples at once
+    (`full_sets`), against the objective's on the card: rtol 1e-6, atol
+    1e-7; the loss entry equal to the full gradient's loss."""
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp import mlp_full_grad, mlp_loss
+
+    obj = mlp_lm_objective(64, **MLP_KW)
+    data = obj.data_args()
+    W = obj.init_flat() + 0.3 * torch.randn((3, obj.flat_dim), generator=gen,
+                                            device="cuda")
+    mu, f = mlp_full_grad(*data, W, obj.kernel_widths)
+    torch.testing.assert_close(mu, obj.flat_full_grad(data, W), rtol=1e-6,
+                               atol=1e-7)
+    torch.testing.assert_close(f, obj.flat_loss(data, W), rtol=1e-6, atol=0)
+    assert torch.equal(mlp_loss(*data, W, obj.kernel_widths), f)
+
+
 def test_sweep_epoch_mlp_full_grad_and_loss_match_objective(gen):
     from repro_torch.core.objectives import mlp_lm_objective
     from repro_torch.kernels.sweep_epoch_mlp import mlp_full_grad, mlp_loss
@@ -453,6 +499,35 @@ def test_sweep_epoch_mlp_full_grad_and_loss_match_objective(gen):
                                atol=1e-7)
     torch.testing.assert_close(f, obj.flat_loss(data, W), rtol=1e-6, atol=0)
     assert torch.equal(mlp_loss(*data, W, obj.kernel_widths), f)
+
+
+def test_sweep_epoch_mlp_unstaged_entries_match_plain(gen):
+    """At V 256, D 64, H 256 the row and its transposed copies do not fit
+    a block beside one set, so the full-gradient, loss and sample-gradient
+    blocks read the row where it lies: each against its plain version."""
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.kernels.sweep_epoch_mlp import ops as mlp_ops
+    from repro_torch.kernels.sweep_epoch_mlp.ref import (full_grad_ref,
+                                                         sample_grad_ref)
+
+    obj = mlp_lm_objective(64, vocab_size=256, seq_len=8, d_model=64,
+                           d_hidden=256)
+    widths, data = obj.kernel_widths, obj.data_args()
+    limit = mlp_ops._limit(torch.device("cuda"))
+    assert mlp_ops.full_layout(8, mlp_ops.MLPWidths(*widths), obj.n,
+                               limit)[1] is False
+    W = obj.init_flat() + 0.05 * torch.randn((2, obj.flat_dim),
+                                             generator=gen, device="cuda")
+    mu, f = mlp_ops.mlp_full_grad(*data, W, widths)
+    mu_ref, f_ref = full_grad_ref(*data, W, widths)
+    torch.testing.assert_close(mu, mu_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(f, f_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(mlp_ops.mlp_loss(*data, W, widths), f_ref,
+                               rtol=1e-5, atol=1e-6)
+    g = mlp_ops.sample_grad(*data, 17, W[1].contiguous(), widths)
+    want = sample_grad_ref(*data, torch.tensor([17], device="cuda"), W[1:],
+                           widths)[0]
+    torch.testing.assert_close(g, want, rtol=1e-6, atol=1e-7)
 
 
 def test_mlp_fused_sweep_matches_batched_on_the_card(gen):

@@ -505,7 +505,8 @@ def test_mamba_train_cell_traces_on_fake_worlds():
     meshes, one process each: its channel-sharded residual makes the
     scan's projection a pending sum, which must be reduced before the scan
     (a pending sum written into the scan's slices cannot take its gradient
-    back)."""
+    back); with the scan's input and gate on the channels' sharding the
+    (2, 16, 16) mesh peaks below the (16, 16) one."""
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
            "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
     procs = {kind: subprocess.Popen([sys.executable, "-c", _MAMBA_TRAIN, kind],
@@ -527,4 +528,7 @@ def test_mamba_train_cell_traces_on_fake_worlds():
     assert cells["single"][0] == 256 and cells["multi"][0] == 512
     for ranks, peak_b, coll_b in cells.values():
         assert peak_b > 0 and coll_b > 0
+    # the scan's channels stay sharded over `model` on the (2, 16, 16) mesh:
+    # it peaks lower than (16, 16), as the dense and MoE train cells do
+    assert cells["multi"][1] < cells["single"][1], cells
 

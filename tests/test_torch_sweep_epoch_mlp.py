@@ -184,17 +184,77 @@ def test_placement_by_size(engine):
     assert ops.shared_bytes(8, WIDE, 3, engine, ops.SHARED) > H100_LIMIT
     assert ops.shared_bytes(8, WIDE, 3, engine, ops.GLOBAL) <= H100_LIMIT
     sets = 2 if engine == "asysvrg" else 1
-    acts = 8 * 8 * (4 * 16 + 2 * 32 + 32 + 4)
-    vectors = (4 if engine == "asysvrg" else 1) + 3
+    acts = 8 * 8 * (4 * 16 + 2 * 32 + 32)
+    queue = 2 * (48 + 8 * 8)             # two stages: mbarriers, header, tokens
+    trans = 32 * 33 + 32 * 17            # w2 [32, 32 | 1], w1 [32, 16 | 1]
+    floats = 3 + (2 if engine == "asysvrg" else 0) + 2   # ring, mu, acc, words
+    row = 8 * sets * (2096 + trans) + 4 * floats * 2096  # a multiple of 16
+    assert ops.row_bytes(DEFAULT, 3, engine) == row
     assert ops.shared_bytes(8, DEFAULT, 3, engine, ops.SHARED) == \
-        sets * acts + 128 + 4 * vectors * 2096
+        sets * acts + queue + row
+    assert ops.shared_bytes(8, DEFAULT, 3, engine, ops.GLOBAL) == \
+        sets * acts + queue
 
 
 def test_widths_past_a_block_are_refused_with_their_bytes():
     huge = MLPWidths(4096, 64, 256, "relu")
     need = ops.shared_bytes(8, huge, 3, "asysvrg", ops.GLOBAL)
+    assert need == 2 * 8 * 8 * (4 * 64 + 2 * 256 + 4096) + 2 * (48 + 64)
     with pytest.raises(ValueError, match=f"{need} bytes"):
         ops.choose_placement(8, huge, 3, "asysvrg", H100_LIMIT)
+
+
+def _old_global_bytes(S, widths, engine):
+    """The epoch block's bytes under ``"global"`` before the warp-local
+    layout: per set 8 S (4 D + 2 H + V + 4), and a 64 + 8 S byte header."""
+    V, D, H = widths.vocab_size, widths.d_model, widths.d_hidden
+    sets = 2 if engine == "asysvrg" else 1
+    return (sets * 8 * S * (4 * D + 2 * H + V + 4)
+            + -(-(64 + 8 * S) // 16) * 16)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 5, 8, 20, 256])
+@pytest.mark.parametrize("engine", ["asysvrg", "hogwild"])
+def test_block_layout_by_sequence_length(S, engine):
+    """The epoch block: one warp per position in each gradient set, at
+    most 8, then the 4 producer warps; its ``"global"`` bytes never exceed
+    the earlier layout's, so no width that block took is refused. The
+    full-gradient block: as many sets as 16 warps and the limit hold."""
+    sets = 2 if engine == "asysvrg" else 1
+    warps = min(S, 8)
+    assert ops.position_warps(S) == warps
+    assert ops.epoch_threads(S, engine) == 32 * (sets * warps + 4)
+    assert ops.epoch_threads(S, engine) <= 640
+    for widths in (DEFAULT, WIDE, MLPWidths(16, 8, 16, "gelu")):
+        assert (ops.shared_bytes(S, widths, 3, engine, ops.GLOBAL)
+                <= _old_global_bytes(S, widths, engine))
+    narrow = MLPWidths(16, 8, 16, "relu")    # one set fits up to S 256
+    full, staged = ops.full_layout(S, narrow, 64, H100_LIMIT)
+    assert staged
+    room = H100_LIMIT - 8 * (narrow.flat_dim + 16 * 17 + 16 * 9)
+    assert full == max(1, min(16 // warps, room // ops._full_bytes(
+        S, narrow)))
+    assert ops.full_threads(S, full) <= 512
+    assert ops._full_bytes(S, narrow, full, staged) <= H100_LIMIT
+
+
+def test_full_layout_follows_the_samples_and_the_limit():
+    """Fewer samples than sets take one set each; the row and its
+    transposed copies (float64) in shared memory where they fit beside a
+    set (d 2096: 29,568 bytes), not at d 98624, where
+    two sets of 65,600 bytes fit (16 warps / 8), at a limit of one set's
+    bytes one."""
+    frontier = MLPWidths(16, 8, 16, "relu")
+    assert ops.full_layout(4, frontier, 3, H100_LIMIT) == (3, True)
+    assert ops.full_layout(8, DEFAULT, 64, H100_LIMIT) == (2, True)
+    assert ops._full_bytes(8, DEFAULT, 2, True) == \
+        2 * 8 * 8 * (4 * 16 + 2 * 32 + 32 + 1) \
+        + 8 * (2096 + 32 * 33 + 32 * 17)
+    assert ops._full_bytes(8, WIDE) == 8 * 8 * (4 * 64 + 2 * 256 + 256 + 1)
+    assert ops.full_layout(8, WIDE, 64, H100_LIMIT) == (2, False)
+    assert ops.full_layout(8, WIDE, 64, ops._full_bytes(8, WIDE)) == \
+        (1, False)
+    assert ops.full_threads(8, 2) == 512
 
 
 def test_fused_final_params_is_the_tree(runs):

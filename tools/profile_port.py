@@ -13,7 +13,8 @@ on the card.
     python3 tools/profile_port.py serve_timed ARCH  # prefill and decode, no profiler
     python3 tools/profile_port.py sweep_epoch  # the fused engine and K3 only
     python3 tools/profile_port.py train        # one SVRG train step only
-    python3 tools/profile_port.py objectives   # NonconvexLogistic batched, the MLP's sweep
+    python3 tools/profile_port.py objectives   # NonconvexLogistic batched, the MLP's sweeps,
+                                               # the MLP's fused epoch split
 
 At the rcv1 width (n = 20242, p = 2048; data from
 `repro_torch.data.libsvm.make_synthetic_libsvm("rcv1")`):
@@ -396,7 +397,8 @@ def profile_objectives(ds) -> None:
     3 rows, M̃ 256): the wall of its first run in the process (its float64
     kernels load), then `_profiled` over one epoch: wall, device-busy
     share, launches and host ``cudaLaunchKernel`` µs per update, the host
-    ops by self time."""
+    ops by self time; then the MLP's fused sweep split by
+    `profile_mlp_fused`."""
     from torch.autograd import DeviceType
 
     from repro_torch.core.objectives import NonconvexLogistic, mlp_lm_objective
@@ -434,6 +436,57 @@ def profile_objectives(ds) -> None:
         "host_ops": [{"name": e.key[:60], "count": e.count,
                       "self_us_per_update": e.self_cpu_time_total / steps}
                      for e in host[:12]]}), flush=True)
+    profile_mlp_fused()
+
+
+def profile_mlp_fused() -> None:
+    """The MLP's fused sweep (chip_smoke.py's 3 inconsistent rows, τ 2, M̃
+    4n, 2 epochs, ``engine_mode="fused"``) at benchmarks/nonconvex_frontier
+    .py's widths and at the objective's defaults, one synchronised run
+    under the profiler after a warm-up run: each epoch split into μ
+    (`mlp_full_grad`'s kernel), the epoch launch (`sweep_epoch_mlp`'s) and
+    the run's starting loss (`mlp_loss`'s), by device time, and the host's
+    `run_sweep` around them (the run's wall less every device kernel's
+    time, so it holds the gaps the host leaves the card)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.core.objectives import mlp_lm_objective
+    from repro_torch.core.sweep import SweepSpec, run_sweep
+
+    epochs = 2
+    parts = (("mu", "full_kernel<true"), ("epoch", "epoch_kernel"),
+             ("loss0", "full_kernel<false"))
+    for name, widths in (
+            ("frontier", dict(vocab_size=16, seq_len=4, d_model=8,
+                              d_hidden=16)),
+            ("defaults", dict(vocab_size=32, seq_len=8, d_model=16,
+                              d_hidden=32))):
+        mlp = mlp_lm_objective(64, **widths)
+        specs = [SweepSpec(scheme="inconsistent", step_size=st, tau=2,
+                           num_threads=4, inner_steps=mlp.n, seed=i,
+                           engine_mode="fused")
+                 for i, st in enumerate((0.05, 0.1, 0.2))]
+        wall, prof_wall, events = _profiled(
+            lambda: run_sweep(mlp, epochs, specs))
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        split = {part: sum(_device_time_us(e) for e in kernels
+                           if key in e.key) * 1e-3 for part, key in parts}
+        device_ms = sum(_device_time_us(e) for e in kernels) * 1e-3
+        print(json.dumps({
+            "objective": "MLPObjective", "engine_mode": "fused",
+            "widths": name, "n": mlp.n, "flat_dim": mlp.flat_dim,
+            "rows": len(specs), "epochs": epochs, "updates": 4 * mlp.n,
+            "wall_ms_per_epoch": 1e3 * wall / epochs,
+            "profiled_wall_ms_per_epoch": 1e3 * prof_wall / epochs,
+            "mu_ms_per_epoch": split["mu"] / epochs,
+            "epoch_launch_ms_per_epoch": split["epoch"] / epochs,
+            "loss0_ms_per_run": split["loss0"],
+            "other_device_ms_per_epoch": (device_ms - sum(split.values()))
+            / epochs,
+            "host_ms_per_epoch": (1e3 * prof_wall - device_ms) / epochs,
+            "device_busy_share": device_ms * 1e-3 / prof_wall,
+            "launches": {part: sum(e.count for e in kernels if key in e.key)
+                         for part, key in parts}}), flush=True)
 
 
 def _summary(events, wall: float, steps: int) -> dict:
