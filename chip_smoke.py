@@ -192,6 +192,11 @@ an encoder's over its valid frames or a cross-attention):
     2048: 2 fused SVRG steps against 2 unfused ones, one K1 launch per
     leaf, no K4;
 
+and, right after the kernels' build, phase `analysis`: the port's linter
+(`python -m repro_torch.analysis src/repro_torch`, in a process of its
+own on this machine, which has no JAX) exits 0 with no finding under any
+rule (RL000-RL006);
+
 and the dry-run (`repro_torch.launch.dryrun`, phase `dryrun`):
 
   * gemma3-4b traced on fake tensors at the one-device mesh at the
@@ -319,6 +324,42 @@ def phase_device():
                   "loads" not in ln]
         if spills:
             raise AssertionError(f"{name} spills registers: {spills}")
+
+
+def phase_analysis():
+    """The port's linter, `python -m repro_torch.analysis`, over the port's
+    tree in a process of its own (this machine has no JAX): it must exit 0
+    with no finding under every rule. Emits the files it read, the rules
+    and its wall time."""
+    import os
+    import shutil
+    import tempfile
+
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lint-", dir=root))
+    try:
+        out = tmp / "lint.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "src/repro_torch",
+             "--json-out", str(out)],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"repro_torch.analysis exited "
+                                 f"{proc.returncode}: {proc.stdout}"
+                                 f"{proc.stderr}")
+        payload = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="analysis", files=payload["files"],
+         diagnostics=len(payload["diagnostics"]),
+         rules=sorted(payload["rules"]),
+         suppressions=payload["suppressions"], seconds=seconds)
+    if payload["diagnostics"] or payload["files"] < 100:
+        raise AssertionError(f"repro_torch.analysis: {payload}")
 
 
 # SASS of the sweep kernel's pipeline: the bulk copy of a row into shared
@@ -4153,6 +4194,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     emit(phase="device_done", seconds=time.perf_counter() - t0)
+
+    phase_analysis()
 
     t0 = time.perf_counter()
     ds = make_synthetic_libsvm("rcv1", scale=1.0)
