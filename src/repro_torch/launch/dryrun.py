@@ -45,11 +45,15 @@ propagation are kept out), and counts:
     ``jaxpr_cost`` is global); ``cost`` holds the same two under the JAX
     record's names.
   * ``collectives``: bytes per kind of the ``c10d_functional`` ops
-    ``DTensor`` issues, per device, as the JAX package's HLO parse counts
-    them (an all-gather's operand, the other kinds' output), and their
-    ``count``. Eager mode runs every layer, so these are totals, and
-    ``collectives_trips`` (the JAX package's loop-multiplied parse) equals
-    ``collectives``.
+    ``DTensor`` issues and of its all-to-all (`_all_to_all_moves`), per
+    device, as the JAX package's HLO parse counts them (an all-gather's
+    operand, the other kinds' output), and their ``count``. Eager mode
+    runs every layer, so these are totals, and ``collectives_trips`` (the
+    JAX package's loop-multiplied parse) equals ``collectives``.
+  * with ``attribute`` (`trace_cell`), ``attribution``: every storage
+    alive at the peak, with the op and the line that made it, its shapes
+    and placements, and the dims a constraint site's layout shards that
+    rank 0 holds whole.
 
 Usage (the whole grid, on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \
@@ -65,6 +69,8 @@ import contextlib
 import json
 import math
 import os
+import re
+import sys
 import time
 import traceback
 import weakref
@@ -122,17 +128,20 @@ MICROBATCHES = {
 COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
                     "all-to-all", "collective-permute")
 
-# c10d_functional op -> (kind, which bytes the JAX package's HLO parse
-# counts: the all-gather's operand, the output of the others)
+# collective op (namespace, name) -> (kind, which bytes the JAX package's
+# HLO parse counts: the all-gather's operand, the output of the others)
 _COLLECTIVE_OPS = {
-    "all_reduce": ("all-reduce", "out"),
-    "all_reduce_": ("all-reduce", "out"),
-    "all_reduce_coalesced": ("all-reduce", "out"),
-    "all_gather_into_tensor": ("all-gather", "in"),
-    "all_gather_into_tensor_coalesced": ("all-gather", "in"),
-    "reduce_scatter_tensor": ("reduce-scatter", "out"),
-    "reduce_scatter_tensor_coalesced": ("reduce-scatter", "out"),
-    "all_to_all_single": ("all-to-all", "out"),
+    ("_c10d_functional", "all_reduce"): ("all-reduce", "out"),
+    ("_c10d_functional", "all_reduce_"): ("all-reduce", "out"),
+    ("_c10d_functional", "all_reduce_coalesced"): ("all-reduce", "out"),
+    ("_c10d_functional", "all_gather_into_tensor"): ("all-gather", "in"),
+    ("_c10d_functional", "all_gather_into_tensor_coalesced"):
+        ("all-gather", "in"),
+    ("_c10d_functional", "reduce_scatter_tensor"): ("reduce-scatter", "out"),
+    ("_c10d_functional", "reduce_scatter_tensor_coalesced"):
+        ("reduce-scatter", "out"),
+    ("_c10d_functional", "all_to_all_single"): ("all-to-all", "out"),
+    ("_dtensor", "shard_dim_alltoall"): ("all-to-all", "out"),
 }
 
 ALLOCATOR_BLOCK = 512      # the CUDA caching allocator's rounding, bytes
@@ -156,14 +165,101 @@ def _rounded(n: int) -> int:
     return -(-n // ALLOCATOR_BLOCK) * ALLOCATOR_BLOCK
 
 
+class _Held:
+    """What the attribution keeps of one live storage: the op that made it
+    (``argument`` for the step's arguments), where (`_where`), its bytes
+    and rank 0's shape, and, once a `DTensor` holds it, the global shape
+    and placements; ``ref`` the placements of the constraint site it
+    reached, if any, and ``ref_site`` where that site is."""
+
+    __slots__ = ("op", "site", "nbytes", "local", "dtype", "shape",
+                 "placements", "ref", "ref_site", "mesh")
+
+    def __init__(self, op: str, site: str, t: torch.Tensor, nbytes: int):
+        self.op, self.site, self.nbytes = op, site, nbytes
+        self.local, self.dtype = tuple(t.shape), str(t.dtype)
+        self.shape = self.placements = self.ref = self.ref_site = None
+        self.mesh = None
+
+    def whole(self):
+        """The dims the constraint site's layout shards over a mesh axis and
+        rank 0 holds whole there (replicated or a pending sum), as
+        ``"dim d over axis"``; [] with no site or no `DTensor`."""
+        if self.ref is None or self.placements is None:
+            return []
+        from torch.distributed.tensor import Shard
+
+        names = self.mesh.mesh_dim_names or range(self.mesh.ndim)
+        return [f"dim {r.dim} over {name}"
+                for name, n, p, r in zip(names, self.mesh.shape,
+                                         self.placements, self.ref)
+                if n > 1 and isinstance(r, Shard) and not isinstance(p, Shard)]
+
+    def record(self) -> Dict:
+        return {"bytes": self.nbytes, "op": self.op, "site": self.site,
+                "local_shape": list(self.local), "dtype": self.dtype,
+                "global_shape": None if self.shape is None else list(self.shape),
+                "placements": None if self.placements is None
+                else [str(p) for p in self.placements],
+                "site_layout": None if self.ref is None
+                else [str(p) for p in self.ref],
+                "constrained_at": self.ref_site, "whole": self.whole()}
+
+
+_PORT = os.sep + "repro_torch" + os.sep
+_TORCH = os.path.dirname(torch.__file__)
+_NOT_A_SITE = (os.path.join("launch", "dryrun.py"),
+               os.path.join("sharding", "context.py"))
+_FRAME = re.compile(r'File "([^"]+)", line (\d+)')
+_CHECKPOINT = os.path.join("torch", "utils", "checkpoint.py")
+
+
+def _site_of(name: str) -> bool:
+    return not (name.startswith(_TORCH) or name.endswith(_NOT_A_SITE))
+
+
+def _named(name: str, line) -> str:
+    name = name.split(_PORT)[1] if _PORT in name else os.path.basename(name)
+    return f"{name}:{line}"
+
+
+def _where() -> str:
+    """The innermost frame outside torch, the dry-run and the sharding
+    helpers (``file:line``, relative to the package inside the port),
+    marked ``recomputed`` where a backward reruns a checkpointed forward;
+    in a backward op, the autograd node's name and the forward frame that
+    made the node (anomaly mode's record)."""
+    node = torch._C._current_autograd_node()
+    frames, rerun = [], False
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        rerun = rerun or name.endswith(_CHECKPOINT)
+        if _site_of(name):
+            frames.append(_named(name, f.f_lineno))
+        f = f.f_back
+    if node is None:
+        return frames[0] if frames else "?"
+    if rerun and frames:
+        return f"{frames[0]} recomputed"
+    trace = "".join(node.metadata.get("traceback_", []))
+    made = [m for m in _FRAME.findall(trace) if _site_of(m[0])]
+    return f"{node.name()} of {_named(*made[-1]) if made else '?'}"
+
+
 class Recorder(TorchDispatchMode):
     """Counts what rank 0 runs: live storages and their peak, FLOPs, bytes
     read and written, collective bytes. Ops on `DTensor`s are handed back
     (``NotImplemented``) so ``DTensor`` runs them as local ops, which come
     here in turn; while `quiet` is entered (``DTensor``'s sharding
-    propagation, whose global-shape ops run nowhere) nothing counts."""
+    propagation, whose global-shape ops run nowhere) nothing counts.
 
-    def __init__(self):
+    With ``attribute`` it also keeps, for each live storage, a `_Held`
+    (the op and the line that made it, rank 0's shape and the global one,
+    the placements, and the layout of the constraint site the value
+    reached), and `at_peak` lists those alive at the peak."""
+
+    def __init__(self, attribute: bool = False):
         super().__init__()
         self.flops = 0
         self.bytes = 0
@@ -175,6 +271,8 @@ class Recorder(TorchDispatchMode):
         self._quiet = 0
         self.watched: Dict[int, int] = {}   # argument storages: bytes
         self.read = set()                   # those an op has taken
+        self.attribute = attribute
+        self.at_peak = []                   # `_Held`s alive at the peak
 
     @contextlib.contextmanager
     def quiet(self):
@@ -184,7 +282,7 @@ class Recorder(TorchDispatchMode):
         finally:
             self._quiet -= 1
 
-    def track(self, t: torch.Tensor) -> None:
+    def track(self, t: torch.Tensor, op: str = "argument") -> None:
         """Count ``t``'s storage as live until it is freed."""
         st = _local(t).untyped_storage()
         key = st._cdata
@@ -192,17 +290,47 @@ class Recorder(TorchDispatchMode):
             return
         n = st.nbytes()
         r = _rounded(n)
+        held = (_Held(op, None if op == "argument" else _where(), _local(t),
+                      n) if self.attribute else None)
         self._storages[key] = (weakref.ref(st, lambda _, k=key: self._free(k)),
-                               n, r)
+                               n, r, held)
         self.live += n
         self.live_rounded += r
+        if self.live > self.peak and self.attribute:
+            self.at_peak = [entry[3] for entry in self._storages.values()]
         self.peak = max(self.peak, self.live)
         self.peak_rounded = max(self.peak_rounded, self.live_rounded)
 
     def _free(self, key: int) -> None:
-        _, n, r = self._storages.pop(key)
+        _, n, r, _ = self._storages.pop(key)
         self.live -= n
         self.live_rounded -= r
+
+    def _held(self, t: torch.Tensor) -> Optional[_Held]:
+        entry = self._storages.get(_local(t).untyped_storage()._cdata)
+        return entry and entry[3]
+
+    def place(self, dt) -> None:
+        """Note a `DTensor`'s global shape and placements on the storage of
+        its local tensor (attribution)."""
+        held = self._held(dt._local_tensor)
+        if held is not None and held.shape is None:
+            held.shape, held.placements = tuple(dt.shape), tuple(dt.placements)
+            held.mesh = dt.device_mesh
+
+    def at_site(self, x, placements) -> None:
+        """Note the layout of the constraint site ``x`` reached on its
+        storage (attribution)."""
+        held = self._held(x)
+        if held is not None:
+            held.shape, held.placements = tuple(x.shape), tuple(x.placements)
+            held.mesh = x.device_mesh
+            held.ref, held.ref_site = tuple(placements), _where()
+
+    def attribution(self) -> list:
+        """The storages alive at the peak, largest first, as records."""
+        return [h.record() for h in sorted(self.at_peak, key=lambda h:
+                                           -h.nbytes)]
 
     def storages(self, tree) -> Dict[int, int]:
         """{storage key: bytes} of the tensors of ``tree``."""
@@ -225,26 +353,76 @@ class Recorder(TorchDispatchMode):
             # eager waits hand back their input; the fake op makes a copy
             return args[0]
         out = func(*args, **kwargs)
+        collective = _COLLECTIVE_OPS.get((func.namespace, packet.__name__))
+        scratch = []
+        if collective is not None and func.namespace == "_dtensor":
+            # the all-to-all's fake kernel cuts the new shard from a
+            # gathered whole and may hand back a view of it; the card's
+            # kernel joins the shard from its pieces
+            out = out.clone()
+            scratch = _all_to_all_pieces(*args[:3], out)
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
         for t in ins:
             key = t.untyped_storage()._cdata
             if key in self.watched:
                 self.read.add(key)
-        for t in outs:
-            self.track(t)
+        for t in scratch + outs:
+            self.track(t, str(packet))
+        del scratch
         formula = flop_counter.flop_registry.get(packet)
         if formula is not None:
             self.flops += int(formula(*args, **kwargs, out_val=out))
-        name = packet.__name__
-        if func.namespace == "_c10d_functional" and name in _COLLECTIVE_OPS:
-            kind, which = _COLLECTIVE_OPS[name]
+        if collective is not None:
+            kind, which = collective
             self.collectives[kind] += sum(map(_nbytes,
                                               ins if which == "in" else outs))
             self.collectives["count"] += 1
         elif not func.is_view and outs:
             self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         return out
+
+
+def _all_to_all_pieces(x, gather_dim: int, shard_dim: int, out) -> list:
+    """Empty tensors as large as the buffers the card's all-to-all
+    (``_dtensor.shard_dim_alltoall`` under NCCL) holds beside its input
+    while it makes ``out``: ``x`` laid out piece by piece for the ranks (a
+    copy, unless the pieces along ``shard_dim`` are contiguous already),
+    and the buffer the pieces are received into, where joining them along
+    ``gather_dim`` takes a copy (where every dim before ``gather_dim`` has
+    one row, the join is a view and that buffer is the output).
+    `tools/all_to_all_peak.py` holds this against four H100s."""
+    pieces = []
+    if not (x.is_contiguous() and math.prod(x.shape[:shard_dim]) == 1):
+        pieces.append(x.new_empty(x.shape))
+    if math.prod(out.shape[:gather_dim]) != 1:
+        pieces.append(out.new_empty(out.shape))
+    return pieces
+
+
+@contextlib.contextmanager
+def _attributed(recorder: Recorder):
+    """While a trace runs with attribution: each `DTensor` made notes its
+    placements on its local storage, each constraint site its layout, and
+    autograd keeps each backward node's forward frames (anomaly mode, no
+    NaN checks)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.context import observe_sites
+
+    original = DTensor.__dict__["__init__"]
+
+    def init(self, *args, **kwargs):
+        original(self, *args, **kwargs)
+        recorder.place(self)
+
+    DTensor.__init__ = init
+    try:
+        with observe_sites(recorder.at_site), \
+                torch.autograd.detect_anomaly(check_nan=False):
+            yield
+    finally:
+        DTensor.__init__ = original
 
 
 @contextlib.contextmanager
@@ -338,6 +516,31 @@ def _plain_move_costs():
         yield
     finally:
         utils.redistribute_cost = original
+
+
+@contextlib.contextmanager
+def _all_to_all_moves():
+    """Move a shard from one tensor dim to another by ``DTensor``'s
+    all-to-all op whatever the fake tensors' device. On a CPU mesh
+    ``DTensor`` gathers the whole dim and cuts the new shard from it
+    instead (gloo has no all-to-all), a transient as large as the
+    unsharded dim that the card's NCCL all-to-all never holds; the
+    `Recorder` counts the op as the card runs it (`_all_to_all_pieces`)."""
+    from torch.distributed._functional_collectives import _resolve_group_name
+    from torch.distributed.tensor import placement_types
+
+    original = placement_types.__dict__["shard_dim_alltoall"]
+    op = torch.ops._dtensor.shard_dim_alltoall
+
+    def all_to_all(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return op(input, gather_dim, shard_dim,
+                  _resolve_group_name((mesh, mesh_dim)))
+
+    placement_types.shard_dim_alltoall = all_to_all
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = original
 
 
 @contextlib.contextmanager
@@ -503,34 +706,49 @@ def cell_inputs(cfg, shape: ShapeConfig, mesh, fake_mode, variant="svrg",
     return decode, (params, cache, tokens, position), [position]
 
 
-def trace_cell(cfg, shape: ShapeConfig, mesh, variant: str = "svrg",
-               microbatches: int = 0) -> Dict:
-    """Run one cell's step once on fake tensors under ``mesh`` with a
-    `Recorder`; returns the record's ``memory``, ``cost``, ``op_cost`` and
-    ``collectives`` (per device: rank 0's). Allocates no device memory and
-    launches no kernel."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    fake_mode = FakeTensorMode()
-    step, args, read = cell_inputs(cfg, shape, mesh, fake_mode, variant,
-                                   microbatches)
-    rec = Recorder()
-    for t in _tensors(args):
-        rec.track(t)
-    rec.watched = rec.storages(args)
-    rec.read.update(rec.storages(read))
-    dtensor = not isinstance(mesh, dict)
+@contextlib.contextmanager
+def recording(rec: Recorder, mesh, fake_mode):
+    """Run what the body runs as rank 0 of ``mesh`` (a `DeviceMesh` of the
+    fake world, or `cell_mesh("host")`'s mapping) in ``fake_mode``, under
+    ``rec``: the ambient mesh installed for the models' constraint sites,
+    and ``DTensor``'s internals patched as a trace needs (see each
+    patch)."""
     with contextlib.ExitStack() as stack:
         stack.enter_context(fake_mode)
-        if dtensor:
+        if not isinstance(mesh, dict):
             from torch.distributed.tensor.experimental import \
                 implicit_replication
             stack.enter_context(implicit_replication())
             stack.enter_context(_quiet_sharding_propagation(rec))
             stack.enter_context(_shard_arithmetic_on_host())
             stack.enter_context(_plain_move_costs())
+            stack.enter_context(_all_to_all_moves())
+        if rec.attribute:
+            stack.enter_context(_attributed(rec))
         stack.enter_context(mesh_context(mesh))
         stack.enter_context(rec)
+        yield
+
+
+def trace_cell(cfg, shape: ShapeConfig, mesh, variant: str = "svrg",
+               microbatches: int = 0, attribute: bool = False) -> Dict:
+    """Run one cell's step once on fake tensors under ``mesh`` with a
+    `Recorder`; returns the record's ``memory``, ``cost``, ``op_cost`` and
+    ``collectives`` (per device: rank 0's). Allocates no device memory and
+    launches no kernel. With ``attribute`` the record also holds
+    ``attribution``: every storage alive at the peak, largest first (see
+    `Recorder`); the trace is then slower (anomaly mode)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fake_mode = FakeTensorMode()
+    step, args, read = cell_inputs(cfg, shape, mesh, fake_mode, variant,
+                                   microbatches)
+    rec = Recorder(attribute)
+    for t in _tensors(args):
+        rec.track(t)
+    rec.watched = rec.storages(args)
+    rec.read.update(rec.storages(read))
+    with recording(rec, mesh, fake_mode):
         out = step(*args)
     outputs = rec.storages(out)
     # the arguments the step reads or hands back: XLA drops a jitted step's
@@ -551,6 +769,7 @@ def trace_cell(cfg, shape: ShapeConfig, mesh, variant: str = "svrg",
         "cost": {"flops": float(rec.flops), "bytes accessed": float(rec.bytes)},
         "op_cost": {"flops": float(rec.flops), "bytes": float(rec.bytes)},
         "collectives": dict(rec.collectives),
+        **({"attribution": rec.attribution()} if attribute else {}),
     }
 
 

@@ -25,7 +25,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tf
 from repro_torch.models.rglru import _causal_conv, chunked, scan, softplus
-from repro_torch.sharding.context import (constrain, propagate_back, settle,
+from repro_torch.sharding.context import (chunk_last, constrain,
+                                         propagate_back, rows_matmul, settle,
                                          write)
 from repro_torch.sharding.rules import ParamDef
 
@@ -112,7 +113,7 @@ def _mamba_block(cfg: ModelConfig, lp: Dict, h, conv_state=None,
                  ssm_state=None):
     """Returns (h_out, (new_conv_state, new_ssm_state))."""
     x = nn.apply_norm(cfg, h, lp["norm"])
-    xb, z = x.matmul(lp["in_proj"]).chunk(2, dim=-1)
+    xb, z = chunk_last(rows_matmul(x, lp["in_proj"]), 2)
     # the scan's input and the gate on the channels' sharding, the layout of
     # the scan's chunks (`selective_scan`): XLA carries that layout back to
     # them, `DTensor` does not, and without it every chunk (and its gradient)
@@ -123,7 +124,7 @@ def _mamba_block(cfg: ModelConfig, lp: Dict, h, conv_state=None,
     y, h_last = selective_scan(xb, lp, cfg, h0=ssm_state)
     y = y + lp["D_skip"] * xb
     y = y * F.silu(z)
-    return h + y.matmul(lp["out_proj"]), (new_conv, h_last)
+    return h + rows_matmul(y, lp["out_proj"]), (new_conv, h_last)
 
 
 def _layer_block(cfg: ModelConfig, lp: Dict, h):

@@ -35,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tf
-from repro_torch.sharding.context import constrain, write, zeros
+from repro_torch.sharding.context import (constrain, local_einsum, write,
+                                         zeros)
 from repro_torch.sharding.rules import ParamDef
 
 CAPACITY_FACTOR = 1.25
@@ -175,14 +176,16 @@ def moe_ffn(x, p: Dict, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     expert_axes = ("expert", "batch", None, None, None)
     dispatch = constrain(r.dispatch, moe_tok_axes)
     combine = constrain(r.combine, moe_tok_axes)
-    xin = torch.einsum("bnsec,bnsd->ebncd", dispatch, xg)        # [E,B,n,C,D]
+    # each rank's own tokens into their slots (`local_einsum`), then moved
+    # to the experts' layout
+    xin = local_einsum("bnsec,bnsd->ebncd", dispatch, xg)        # [E,B,n,C,D]
     xin = constrain(xin, expert_axes)
     hg = nn._act(cfg.activation,
-                 torch.einsum("ebncd,edf->ebncf", xin, p["w_gate"]))
-    hu = torch.einsum("ebncd,edf->ebncf", xin, p["w_up"])
-    out_e = torch.einsum("ebncf,efd->ebncd", hg * hu, p["w_down"])
+                 local_einsum("ebncd,edf->ebncf", xin, p["w_gate"]))
+    hu = local_einsum("ebncd,edf->ebncf", xin, p["w_up"])
+    out_e = local_einsum("ebncf,efd->ebncd", hg * hu, p["w_down"])
     out_e = constrain(out_e, expert_axes)
-    y = torch.einsum("bnsec,ebncd->bnsd", combine, out_e).reshape(B, S, D)
+    y = local_einsum("bnsec,ebncd->bnsd", combine, out_e).reshape(B, S, D)
 
     if cfg.num_shared_experts > 0:
         sp = p["shared"]

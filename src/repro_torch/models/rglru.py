@@ -34,7 +34,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tf
-from repro_torch.sharding.context import constrain, merge, unflatten, write
+from repro_torch.sharding.context import (constrain, local_einsum, merge,
+                                         propagate_back, rows_matmul,
+                                         split_heads, write)
 from repro_torch.sharding.rules import ParamDef
 
 RG_C = 8.0
@@ -173,11 +175,13 @@ def chunked(body, h0, xs, S: int, chunk: int):
 # ---------------------------------------------------------------------------
 
 def _block_diag(x, w):
-    """x [B,S,W], w [nb,bs,bs] block-diagonal matmul."""
-    B, S, W = x.shape
+    """x [B,S,W], w [nb,bs,bs] block-diagonal matmul. The blocks split as
+    heads do (`split_heads`): under a mesh whose channel shards the blocks
+    do not divide, the sharding moves onto the sequence, not gathered, and
+    each rank multiplies its own rows (`local_einsum`)."""
     nb = w.shape[0]
-    xb = unflatten(x, 2, (nb, W // nb))
-    return merge(torch.einsum("bsnk,nkj->bsnj", xb, w), 2)
+    xb = split_heads(x, nb)
+    return merge(local_einsum("bsnk,nkj->bsnj", xb, w), 2)
 
 
 def _causal_conv(x, conv_w, conv_b, state=None):
@@ -237,18 +241,24 @@ def rg_lru(x, gates_r, gates_i, lam, h0=None):
 def _rec_block(cfg: ModelConfig, lp: Dict, h, conv_state=None, h0=None):
     """Returns (h_out, (new_conv_state, new_h_state))."""
     x = nn.apply_norm(cfg, h, lp["norm"])
-    xb = constrain(x.matmul(lp["w_x"]), ("batch", None, "mlp"))
-    yb = F.gelu(constrain(x.matmul(lp["w_y"]), ("batch", None, "mlp")),
+    xb = constrain(rows_matmul(x, lp["w_x"]), ("batch", None, "mlp"))
+    yb = F.gelu(constrain(rows_matmul(x, lp["w_y"]), ("batch", None, "mlp")),
                 approximate="tanh")
     xb, new_conv = _causal_conv(xb, lp["conv_w"], lp["conv_b"], conv_state)
-    gr = _block_diag(xb, lp["gate_r_w"]) + lp["gate_r_b"]
-    gi = _block_diag(xb, lp["gate_i_w"]) + lp["gate_i_b"]
+    # the gates on the channels' sharding, the layout of the scan's chunks
+    # (`rg_lru`): XLA carries it back to them, `DTensor` does not, and
+    # without it the gates come out sharded over the sequence, which every
+    # chunk then gathers whole
+    gr = propagate_back(_block_diag(xb, lp["gate_r_w"]) + lp["gate_r_b"],
+                        ("batch", None, "mlp"))
+    gi = propagate_back(_block_diag(xb, lp["gate_i_w"]) + lp["gate_i_b"],
+                        ("batch", None, "mlp"))
     rec, h_last = rg_lru(xb, gr, gi, lp["lam"], h0)
-    h = h + (rec * yb).matmul(lp["w_out"])
+    h = h + rows_matmul(rec * yb, lp["w_out"])
     x = nn.apply_norm(cfg, h, lp["mlp"]["norm"])
-    gate = F.gelu(x.matmul(lp["mlp"]["w_gate"]), approximate="tanh")
-    up = x.matmul(lp["mlp"]["w_up"])
-    h = h + (gate * up).matmul(lp["mlp"]["w_down"])
+    gate = F.gelu(rows_matmul(x, lp["mlp"]["w_gate"]), approximate="tanh")
+    up = rows_matmul(x, lp["mlp"]["w_up"])
+    h = h + rows_matmul(gate * up, lp["mlp"]["w_down"])
     return h, (new_conv, h_last)
 
 

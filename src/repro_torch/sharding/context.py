@@ -23,10 +23,10 @@ cache in place, :func:`settle` reduces a pending sum, :func:`gather_seq` gathers
 sharded sequence, :func:`grad_placed` places a parameter's gradient as the
 parameter, :func:`row_block` splits a batch into microbatches,
 and :func:`rows_matmul`,
-:func:`unflatten` / :func:`merge`, :func:`split_heads`,
+:func:`unflatten` / :func:`merge`, :func:`split_heads`, :func:`chunk_last`,
 :func:`local_len` / :func:`follow_seq`, :func:`by_query_shard`,
-:func:`take_along_last`, :func:`logsumexp_last` and :func:`embed_lookup`
-reshape, reduce,
+:func:`take_along_last`, :func:`logsumexp_last`, :func:`embed_lookup` and
+:func:`local_einsum` reshape, reduce,
 multiply and gather where ``DTensor``'s own rules would refuse or plan
 too slowly. On plain tensors each is the op the model used before.
 """
@@ -124,6 +124,32 @@ def _dtensor_mesh(x):
     return mesh if isinstance(x, DTensor) else None
 
 
+@contextlib.contextmanager
+def observe_sites(observer):
+    """Call ``observer(x, placements)`` at every constraint site (`constrain`,
+    `propagate_back`) with the `DTensor` that reaches it and the placements
+    the site's logical axes give: the JAX package's layout for that value
+    (the dry-run's attribution of a peak)."""
+    prev = getattr(_state, "observer", None)
+    _state.observer = observer
+    try:
+        yield
+    finally:
+        _state.observer = prev
+
+
+def _to_site(x, mesh, logical_axes):
+    """``x`` moved to the placements of a constraint site's logical axes."""
+    spec = logical_to_pspec(x.shape, logical_axes, mesh, current_rules())
+    placements = spec_to_placements(spec, mesh)
+    observer = getattr(_state, "observer", None)
+    if observer is not None:
+        observer(x, placements)
+    # a pending sum is reduced first (`settle`): ``DTensor`` cannot carry
+    # the gradient of a partial-to-shard move back
+    return settle(x).redistribute(mesh, placements)
+
+
 def constrain(x, logical_axes: Sequence[Optional[str]]):
     """Redistribute a `DTensor` to the placements its logical axes map to on
     the ambient mesh; ``x`` unchanged outside a mesh or for a plain
@@ -131,10 +157,7 @@ def constrain(x, logical_axes: Sequence[Optional[str]]):
     mesh = _dtensor_mesh(x)
     if mesh is None:
         return x
-    spec = logical_to_pspec(x.shape, logical_axes, mesh, current_rules())
-    # a pending sum is reduced first (`settle`): ``DTensor`` cannot carry
-    # the gradient of a partial-to-shard move back
-    return settle(x).redistribute(mesh, spec_to_placements(spec, mesh))
+    return _to_site(x, mesh, logical_axes)
 
 
 def constrain_heads_or_seq(x, head_axis: str = "heads"):
@@ -430,23 +453,48 @@ def unflatten(x, dim: int, sizes: Sequence[int]):
     return x.unflatten(dim, sizes)
 
 
+def _via_seq(x, dim: int, groups: Optional[int] = None):
+    """``x`` with its sharding on ``dim`` moved onto its sequence (dim 1, an
+    all-to-all), where ``x`` is a `DTensor` sharded on ``dim`` over more
+    than one rank, its sequence is not sharded and divides among those
+    ranks, and ``groups``, where given (the groups ``dim`` is split into),
+    does not (they would keep the sharding); else None."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor) or Shard(1) in x.placements:
+        return None
+    ways = math.prod(n for n, p in zip(x.device_mesh.shape, x.placements)
+                     if p == Shard(dim))
+    if ways == 1 or x.shape[1] % ways or (groups is not None
+                                          and groups % ways == 0):
+        return None
+    return x.redistribute(x.device_mesh, [Shard(1) if p == Shard(dim) else p
+                                          for p in x.placements])
+
+
 def split_heads(q, kv_heads: int):
     """q [B, S, N, h] -> [B, S, K, N/K, h] (``q.unflatten(2, (K, N/K))``).
     A `DTensor` whose heads are sharded over more ranks than K splits
     into moves that sharding onto its sequence first where the sequence
-    divides (an all-to-all), so each rank keeps 1/ways of the queries
+    divides (`_via_seq`), so each rank keeps 1/ways of the queries
     instead of gathering all heads (`unflatten`'s way, left for a single
     query)."""
-    from torch.distributed.tensor import DTensor, Shard
-
-    if isinstance(q, DTensor):
-        ways = math.prod(n for n, p in zip(q.device_mesh.shape, q.placements)
-                         if p == Shard(2))
-        if ways > 1 and kv_heads % ways and Shard(1) not in q.placements \
-                and q.shape[1] % ways == 0:
-            q = q.redistribute(q.device_mesh, [
-                Shard(1) if p == Shard(2) else p for p in q.placements])
+    moved = _via_seq(q, 2, kv_heads)
+    q = q if moved is None else moved
     return unflatten(q, 2, (kv_heads, q.shape[2] // kv_heads))
+
+
+def chunk_last(x, parts: int):
+    """``x.chunk(parts, dim=-1)``. A `DTensor` sharded on its last dim over
+    more than one rank moves that sharding onto its sequence where the
+    sequence divides (`_via_seq`), is cut there, and each part moves back
+    (XLA's reshuffle of a sharded split): ``DTensor``'s own chunk gathers
+    the whole last dim, and its gradient comes back whole."""
+    seq = _via_seq(x, x.ndim - 1)
+    if seq is None:
+        return x.chunk(parts, dim=-1)
+    return tuple(part.redistribute(x.device_mesh, x.placements)
+                 for part in seq.chunk(parts, dim=-1))
 
 
 def local_len(x, dim: int) -> int:
@@ -466,8 +514,7 @@ def propagate_back(x, logical_axes: Sequence[Optional[str]]):
     mesh = _dtensor_mesh(x)
     if mesh is None:
         return x
-    spec = logical_to_pspec(x.shape, logical_axes, mesh, current_rules())
-    return settle(x).redistribute(mesh, spec_to_placements(spec, mesh))
+    return _to_site(x, mesh, logical_axes)
 
 
 def follow_seq(x, ref):
@@ -507,6 +554,51 @@ def by_query_shard(fn, q, k, v, bias, *rest):
     out = fn(q.to_local(), k_l, v_l, bias, *rest).contiguous()
     return DTensor.from_local(out, mesh, q.placements, run_check=False,
                               shape=q.shape, stride=contiguous_stride(q.shape))
+
+
+def local_einsum(eq: str, *xs):
+    """``torch.einsum(eq, *xs)``. Where every operand is a `DTensor` and the
+    first one's sharded dims are all subscripts of the output, each rank
+    runs the einsum on its own shards: an operand that carries such a
+    subscript is sharded on it as the first one is, one that does not (a
+    weight) is gathered on that mesh dim (XLA's fsdp gather; its gradient
+    comes back a pending sum there), and the output is placed on the same
+    subscripts. ``DTensor``'s own einsum flattens the batch dims into one,
+    which cannot keep two of them sharded (the MoE dispatch and combine
+    would hold every group of a rank's rows), and may shard a weight's
+    contraction instead of gathering it (every rank then holds the whole
+    batch's product as a pending sum). Anything else is the plain
+    einsum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    ref = xs[0]
+    ins, out = eq.replace(" ", "").split("->")
+    subs = ins.split(",")
+    if not all(isinstance(x, DTensor) for x in xs) or not all(
+            isinstance(p, (Shard, Replicate)) for p in ref.placements):
+        return torch.einsum(eq, *xs)
+    letters = [subs[0][p.dim] if isinstance(p, Shard) else None
+               for p in ref.placements]
+    if any(a is not None and a not in out for a in letters):
+        return torch.einsum(eq, *xs)
+    mesh = ref.device_mesh
+    sizes, parts = {}, []
+    for x, sub in zip(xs, subs):
+        sizes.update(zip(sub, x.shape))
+        on = [Shard(sub.index(a)) if a and a in sub else Replicate()
+              for a in letters]
+        grads = [Partial() if a and a not in sub else p
+                 for a, p in zip(letters, on)]
+        x = settle(x).redistribute(mesh, on)
+        parts.append(x.to_local(grad_placements=grads))
+    shape = tuple(sizes[a] for a in out)
+    # contiguous, as the output's global stride says (the plain path's next
+    # reshape copies it the same)
+    return DTensor.from_local(
+        torch.einsum(eq, *parts).contiguous(), mesh,
+        [Shard(out.index(a)) if a else Replicate() for a in letters],
+        run_check=False, shape=torch.Size(shape),
+        stride=contiguous_stride(shape))
 
 
 class _Merge(torch.autograd.Function):
@@ -624,19 +716,62 @@ class _UnflatRows(torch.autograd.Function):
         return grad.flatten(0, 1), None
 
 
+class _GatherGrad(torch.autograd.Function):
+    """Identity whose backward gathers the gradient's last dim on the mesh
+    dims flagged in ``dims``."""
+
+    @staticmethod
+    def forward(ctx, y, dims):
+        ctx.dims = dims
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = grad.ndim - 1
+        return grad.redistribute(grad.device_mesh, [
+            Replicate() if d and p == Shard(last) else p
+            for d, p in zip(ctx.dims, grad.placements)]), None
+
+
 def rows_matmul(x, w, linear: bool = False):
     """``x @ w`` (or ``F.linear(x, w)`` with ``linear``) for x [B, S, K]. On
     a `DTensor` the rows are flattened with the sequence gathered and the
     batch alone sharded, in the forward and the backward pass alike: a
     batch and a sequence both sharded would flatten into a strided shard,
     whose redistributions ``DTensor`` plans by a search that takes minutes
-    a layer on a three-dim mesh."""
+    a layer on a three-dim mesh. A `DTensor` weight is gathered on each
+    mesh dim the rows are sharded over (the fsdp gather XLA's partitioner
+    makes for a data-parallel product; its backward reduce-scatters the
+    gradient): left sharded there, ``DTensor`` may move the rows' shard
+    onto the contraction instead, and every rank then holds the whole
+    batch's product as a pending sum. Where the rows' contraction and the
+    weight's output are sharded over one mesh dim and the output is the
+    wider, the rows are gathered there."""
     import torch.nn.functional as F
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if not isinstance(x, DTensor):
         return F.linear(x, w) if linear else x.matmul(w)
     rows = tuple(x.shape[:2])
     x = _FlatRows.apply(gather_seq(settle(x)))
+    if isinstance(w, DTensor):
+        w = w.redistribute(w.device_mesh, [
+            Replicate() if r == Shard(0) and isinstance(p, Shard) else p
+            for r, p in zip(x.placements, w.placements)])
+        # where the contraction and the output are sharded over one mesh
+        # dim, the narrower side is gathered, as XLA does: the rows in the
+        # forward pass, the output's gradient in the backward (a pending
+        # sum of the product would be as wide as the product)
+        out, k = (0, 1) if linear else (1, 0)
+        if w.shape[out] > w.shape[k]:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if p == Shard(1) and q == Shard(out) else p
+                for p, q in zip(x.placements, w.placements)])
+        back = tuple(q == Shard(k) and w.shape[k] > w.shape[out]
+                     for q in w.placements)
     y = F.linear(x, w) if linear else x.matmul(w)
+    if isinstance(w, DTensor) and any(back):
+        y = _GatherGrad.apply(y, back)
     return _UnflatRows.apply(y, rows)

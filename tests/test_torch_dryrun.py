@@ -367,6 +367,62 @@ with ctx.mesh_context(mesh):
     picked = ctx.take_along_last(logits, idx)
     picked.sum().backward()
     out["take_along_last"] = [list(picked.shape), list(logits.grad.to_local().shape)]
+    pl = lambda t: [str(q) for q in t.placements]
+    local = lambda t: list(t.to_local().shape)
+    # local_einsum, the MoE dispatch: two batch dims sharded stay sharded
+    disp = dt((4, 2, 3, 4, 2), [Shard(0), Shard(1)])
+    xg = dt((4, 2, 3, 8), [Shard(0), Shard(1)])
+    xin = ctx.local_einsum("bnsec,bnsd->ebncd", disp, xg)
+    out["local_einsum_dispatch"] = [pl(xin), local(xin)]
+    # local_einsum, an expert product: the weight gathered over data (its
+    # fsdp dim), its gradient a pending sum there, reduce-scattered back to
+    # the weight's layout
+    xin = dt((4, 4, 2, 2, 8), [Shard(1), Shard(0)])
+    for name, wpl in (("gathered", [Replicate(), Shard(0)]),
+                      ("fsdp", [Shard(1), Shard(0)])):
+        w = dt((4, 8, 6), wpl, grad=True)
+        y = ctx.local_einsum("ebncd,edf->ebncf", xin, w)
+        with CommDebugMode() as comm:
+            g, = torch.autograd.grad(y.sum(), [w])
+        counts = comm.get_comm_counts()
+        out["local_einsum_" + name] = [pl(y), local(y), pl(g), local(g), [
+            counts.get(op, 0) for op in (
+                torch.ops.c10d_functional.all_reduce,
+                torch.ops.c10d_functional.reduce_scatter_tensor)]]
+    # chunk_last: each part and the gradient keep the last dim's sharding
+    x = dt((4, 8, 16), [Shard(0), Shard(2)], grad=True)
+    a, b = ctx.chunk_last(x, 2)
+    g, = torch.autograd.grad((a * b).sum(), [x])
+    out["chunk_last"] = [pl(a), local(a), pl(b), pl(g), local(g)]
+    # rows_matmul, an fsdp weight: gathered over data, its gradient back on
+    # the weight's layout
+    x = dt((4, 8, 16), [Shard(0), Replicate()], grad=True)
+    w = dt((16, 8), [Shard(0), Shard(1)], grad=True)
+    y = ctx.rows_matmul(x, w)
+    gx, gw = torch.autograd.grad(y.sum(), [x, w])
+    out["rows_matmul_fsdp"] = [pl(y), local(y), pl(gw), local(gw), pl(gx)]
+    # rows_matmul, contraction and output over one mesh dim, the output the
+    # wider: the rows gathered there, no pending sum
+    x = dt((4, 8, 8), [Shard(0), Shard(2)], grad=True)
+    w = dt((8, 32), [Replicate(), Shard(1)], grad=True)
+    y = ctx.rows_matmul(x, w)
+    gx, = torch.autograd.grad(y.sum(), [x])
+    out["rows_matmul_wide_out"] = [pl(y), local(y), pl(gx)]
+    # rows_matmul, the contraction the wider: the output's gradient, which
+    # comes back sharded on its channels, is gathered there (`_GatherGrad`)
+    x = dt((4, 8, 32), [Shard(0), Shard(2)], grad=True)
+    w = dt((32, 8), [Replicate(), Shard(0)], grad=True)
+    y = ctx.rows_matmul(x, w)
+    gx, = torch.autograd.grad(y, [x], grad_outputs=[
+        dt((4, 8, 8), [Shard(0), Shard(2)])])
+    out["rows_matmul_wide_in"] = [pl(y), pl(gx), local(gx)]
+    # _GatherGrad: the gradient's last dim gathered on the flagged mesh dims
+    for name, apl, dims in (("model", [Shard(0), Shard(1)], (False, True)),
+                            ("data", [Shard(1), Shard(0)], (True, False))):
+        a = dt((4, 8), apl, grad=True)
+        g, = torch.autograd.grad(ctx._GatherGrad.apply(a, dims), [a],
+                                 grad_outputs=[dt((4, 8), apl)])
+        out["gather_grad_" + name] = pl(g)
 print("HELPERS", json.dumps(out))
 """
 
@@ -384,6 +440,33 @@ HELPER_CHECKS = {
     "logsumexp_last": [[4], 0],
     # the gather's gradient is rank 0's [2, 16] shard, not the global shape
     "take_along_last": [[4], [2, 16]],
+    # the dispatch keeps both batch dims sharded: rank 0 holds its own
+    # [4, 2, 1, 2, 8] slots of the [4, 4, 2, 2, 8] whole
+    "local_einsum_dispatch": [["S(1)", "S(2)"], [4, 2, 1, 2, 8]],
+    # an expert product on rank 0's tokens and experts; a weight replicated
+    # over data gets its gradient all-reduced there (the pending sum the
+    # local product leaves), an fsdp weight gathered over data gets it
+    # reduce-scattered back to its own [2, 4, 6] shard
+    "local_einsum_gathered": [["S(1)", "S(0)"], [2, 2, 2, 2, 6],
+                              ["R", "S(0)"], [2, 8, 6], [1, 0]],
+    "local_einsum_fsdp": [["S(1)", "S(0)"], [2, 2, 2, 2, 6],
+                          ["S(1)", "S(0)"], [2, 4, 6], [0, 1]],
+    # both parts and the gradient keep the channels' sharding over model
+    "chunk_last": [["S(0)", "S(2)"], [2, 8, 4], ["S(0)", "S(2)"],
+                   ["S(0)", "S(2)"], [2, 8, 8]],
+    # an fsdp weight: the output on the batch and the weight's columns, the
+    # weight's gradient on its own [8, 4] shard, the rows' on theirs
+    "rows_matmul_fsdp": [["S(0)", "S(2)"], [2, 8, 4], ["S(0)", "S(1)"],
+                         [8, 4], ["S(0)", "R"]],
+    # a wider output: the rows gathered over model, the output sharded
+    # there (no pending sum as wide as the product)
+    "rows_matmul_wide_out": [["S(0)", "S(2)"], [2, 8, 16], ["S(0)", "S(2)"]],
+    # a wider contraction: the output a pending sum over model; the rows'
+    # gradient on the rows' channels
+    "rows_matmul_wide_in": [["S(0)", "P(sum)"], ["S(0)", "S(2)"], [2, 8, 16]],
+    # the gradient's last dim gathered on the flagged mesh dim alone
+    "gather_grad_model": ["S(0)", "R"],
+    "gather_grad_data": ["R", "S(0)"],
 }
 
 
@@ -405,8 +488,52 @@ def test_sharding_helpers_place_as_the_reference_layout(helper_placements,
     """Each helper the dry-run's train cells lean on keeps the layout the
     JAX lowering gives: gradients on their parameters' placements, a batch
     sharding kept through a reduction's backward, vocab-parallel lookups,
-    log-sum-exps and gathers on rank 0's shard."""
+    log-sum-exps and gathers on rank 0's shard, the MoE einsums on each
+    rank's own shards, a sharded split, and the fsdp weight gathers and
+    narrow-side gathers of the row products."""
     assert helper_placements[check] == HELPER_CHECKS[check]
+
+
+# the all-to-all's count on a fake world of 4 ranks
+# (`tools/all_to_all_peak.py --estimate`, the cases that tool runs on 4
+# cards): bytes of rank 0's input shard, its peak above the input in
+# shards as 4 H100s under NCCL measured it (torch 2.11: the input laid out
+# piece by piece unless already so, the receive buffer, and a copy where
+# the join along the old shard dim is not a view), the new shard's shape
+ALL_TO_ALL = {
+    "rows_to_cols": (512 * 1024 * 4 // 4, 2, [512, 256]),
+    "cols_to_rows": (512 * 1024 * 4 // 4, 2, [128, 1024]),
+    "channels_to_seq": (8 * 1024 * 768 * 2 // 4, 3, [4, 512, 768]),
+    "seq_to_channels": (8 * 1024 * 768 * 2 // 4, 3, [4, 1024, 384]),
+    "rows_to_channels": (64 * 32 * 256 * 4 // 4, 2, [64, 32, 64]),
+    "seq_to_channels_one_row": (512 * 1024 * 4 // 4, 2, [1, 512, 256]),
+}
+
+
+@pytest.fixture(scope="module")
+def all_to_all_counts():
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run([sys.executable, "tools/all_to_all_peak.py",
+                           "--estimate"], cwd=REPO, env=env,
+                          capture_output=True, text=True,
+                          timeout=GRID_DEADLINE_S)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [x for x in proc.stdout.splitlines()
+            if x.startswith("ESTIMATE ")][0]
+    return json.loads(line[len("ESTIMATE "):])
+
+
+@pytest.mark.parametrize("case", sorted(ALL_TO_ALL))
+def test_all_to_all_counts_the_cards_buffers(all_to_all_counts, case):
+    """A shard moved from one tensor dim to another is one all-to-all of
+    the new shard's bytes (no all-gather of the whole dim, gloo's way on
+    a CPU mesh); rank 0 peaks above its input at the bytes the cards did,
+    then holds the new shard alone."""
+    shard, peak, local = ALL_TO_ALL[case]
+    got = all_to_all_counts[case]
+    assert got == {"peak": peak * shard, "held": shard, "all_to_all": shard,
+                   "all_gather": 0, "shard": local}
 
 
 _GRID = """
